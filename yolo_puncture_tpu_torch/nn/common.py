@@ -1,0 +1,297 @@
+"""Convolutional and attention blocks of the YOLO v8/v10/v11 family (NCHW).
+
+Counterpart of ``yolo_puncture_tpu/nn/common.py``.  Module and attribute names
+follow the ultralytics state-dict layout (``cv1.conv.weight``, ``m.0.cv2.bn``,
+``cv1.2.conv1.conv`` …), so checkpoints and the weight bridge load by name.
+Padding is the explicit symmetric ``k // 2`` (``autopad``); BatchNorm uses
+ultralytics' eps 1e-3.  Inference only: BatchNorm runs on its running statistics.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+
+
+def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
+    """'same'-shape padding for odd kernels, torch Conv2d(p=k//2)."""
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+class ConvBN(nn.Module):
+    """Conv2d(bias=False) + BatchNorm + SiLU: ultralytics ``Conv``."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
+                 g: int = 1, d: int = 1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=0.03)
+        self.act = act
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return F.silu(x) if self.act else x
+
+
+class DWConv(ConvBN):
+    """Depthwise conv (groups == channels)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, act: bool = True):
+        super().__init__(c1, c2, k, s, g=c1, act=act)
+
+
+class Bottleneck(nn.Module):
+    """cv1 → cv2, plus the input when ``shortcut`` and the widths match."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k: Tuple[int, int] = (3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, k[0], 1)
+        self.cv2 = ConvBN(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """CSP bottleneck with two convolutions and n inner bottlenecks (dense splits)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)
+        )
+
+    def forward(self, x):
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with three convolutions."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k: Tuple[int, int] = (1, 3)):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.cv3 = ConvBN(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=k, e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat((self.m(self.cv1(x)), self.cv2(x)), 1))
+
+
+class C3k(C3):
+    """C3 with a configurable bottleneck kernel (YOLO11)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, k: int = 3):
+        super().__init__(c1, c2, n, shortcut, g, e, k=(k, k))
+
+
+class C3k2(C2f):
+    """YOLO11 block: C2f whose inner modules are C3k (when c3k) or Bottleneck."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut, g) if c3k else Bottleneck(self.c, self.c, shortcut, g)
+            for _ in range(n)
+        )
+
+
+def max_pool_same(x, k: int, stride: int = 1):
+    """MaxPool2d(k, stride, padding=k//2) on NCHW."""
+    return F.max_pool2d(x, k, stride, k // 2)
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): three stacked k=5 max pools."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c_ * 4, c2, 1, 1)
+        self.k = k
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(max_pool_same(ys[-1], self.k))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class SCDown(nn.Module):
+    """YOLOv10 spatial-channel decoupled downsample: 1×1 pointwise + k×k depthwise."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.cv2 = ConvBN(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """7×7 depthwise + 3×3 depthwise + identity, SiLU after the sum."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = ConvBN(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = ConvBN(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def forward(self, x):
+        return F.silu(self.conv(x) + self.conv1(x) + x)
+
+
+class CIB(nn.Module):
+    """YOLOv10 compact inverted block (dw–pw–dw–pw–dw, optional residual)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            ConvBN(c1, c1, 3, g=c1),
+            ConvBN(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else ConvBN(2 * c_, 2 * c_, 3, g=2 * c_),
+            ConvBN(2 * c_, c2, 1),
+            ConvBN(c2, c2, 3, g=c2),
+        )
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB inner blocks (YOLOv10)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n))
+
+
+class Attention(nn.Module):
+    """Partial self-attention core (ultralytics ``Attention``): softmax(q·kᵀ·scale)·v
+    over the H·W positions, plus a depthwise positional conv of v.  Plain
+    matmuls and an fp32 softmax, as the JAX package leaves them to XLA."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        h = dim + 2 * self.key_dim * num_heads
+        self.qkv = ConvBN(dim, h, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        N = H * W
+        qkv = self.qkv(x).view(B, self.num_heads, 2 * self.key_dim + self.head_dim, N)
+        q, k, v = qkv.split([self.key_dim, self.key_dim, self.head_dim], dim=2)
+        attn = torch.matmul(q.transpose(-2, -1), k) * self.scale  # (B, h, N, N)
+        attn = attn.float().softmax(dim=-1).to(v.dtype)
+        out = torch.matmul(v, attn.transpose(-2, -1)).reshape(B, C, H, W)
+        return self.proj(out + self.pe(v.reshape(B, C, H, W)))
+
+
+class PSABlock(nn.Module):
+    """Attention + FFN residual block (C2PSA's inner block)."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4, shortcut: bool = True):
+        super().__init__()
+        self.attn = Attention(c, num_heads, attn_ratio)
+        self.ffn = nn.Sequential(ConvBN(c, c * 2, 1), ConvBN(c * 2, c, 1, act=False))
+        self.add = shortcut
+
+    def forward(self, x):
+        x = x + self.attn(x) if self.add else self.attn(x)
+        return x + self.ffn(x) if self.add else self.ffn(x)
+
+
+class PSA(nn.Module):
+    """YOLOv10 partial self-attention: split channels, attend half, re-fuse."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN(2 * self.c, c2, 1)
+        self.attn = Attention(self.c, max(1, self.c // 64), 0.5)
+        self.ffn = nn.Sequential(ConvBN(self.c, self.c * 2, 1), ConvBN(self.c * 2, self.c, 1, act=False))
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat((a, b), 1))
+
+
+class C2PSA(nn.Module):
+    """YOLO11: stacked PSABlocks inside a C2-style split."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN(2 * self.c, c2, 1)
+        self.m = nn.Sequential(
+            *(PSABlock(self.c, 0.5, max(1, self.c // 64)) for _ in range(n))
+        )
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        return self.cv2(torch.cat((a, self.m(b)), 1))
+
+
+class Proto(nn.Module):
+    """Segmentation prototypes: conv → 2× ConvTranspose upsample → conv → 1×1."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = ConvBN(c_, c_, 3)
+        self.cv3 = ConvBN(c_, c2)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+def upsample_nearest_2x(x):
+    """Nearest-neighbour 2× upsample of NCHW (torch nn.Upsample(scale_factor=2))."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def dfl_expectation(box_dist, reg_max: int = 16):
+    """Distribution Focal Loss decode: (..., 4·reg_max) → (..., 4), fp32 softmax
+    over the bins, then the expected bin."""
+    d = box_dist.reshape(*box_dist.shape[:-1], 4, reg_max).float()
+    bins = torch.arange(reg_max, dtype=torch.float32, device=d.device)
+    return (d.softmax(dim=-1) * bins).sum(dim=-1)

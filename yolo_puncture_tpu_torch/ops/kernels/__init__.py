@@ -1,0 +1,1 @@
+"""Hand-written CUDA kernels (sources in ``csrc/``), each beside its plain PyTorch version."""

@@ -1,0 +1,197 @@
+"""Weight bridge: JAX YOLO variables and ultralytics ``.pt`` files → the port's state_dict.
+
+The port's YOLO modules carry ultralytics state-dict names
+(``model.0.conv.weight``, ``model.23.one2one_cv3.0.0.0.conv.weight``, …), so an
+ultralytics checkpoint loads by name and the JAX package's flax variables need
+only a key map and a layout change:
+
+  * conv kernels HWIO → OIHW, dense kernels transposed;
+  * ``ConvTranspose`` kernels (the Proto upsample) are also flipped spatially:
+    flax's ConvTranspose cross-correlates the dilated input where torch's
+    convolves.  Without the flip Proto is wrong while the rest of the forward
+    still runs.
+
+This is the port's own copy of the JAX package's ``utils/torch_convert.py``
+(``yolo_flax_path_to_torch_key``, ``export_yolo_state_dict`` and the
+stub-unpickler ``.pt`` reader); the port imports nothing from that package.
+"""
+
+from __future__ import annotations
+
+import pickle
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Reading torch files without the original class definitions
+# ---------------------------------------------------------------------------
+
+
+class _Stub:
+    """Placeholder for classes that cannot be imported (ultralytics model wrappers)."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        else:
+            self.__dict__["_state"] = state
+
+    def __call__(self, *a, **k):  # some reduces call the class
+        return self
+
+
+def _stub_class(module: str, name: str):
+    return type(name, (_Stub,), {"__module__": module})
+
+
+class _StubUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return _stub_class(module, name)
+
+
+def load_torch_file(path: str):
+    """``torch.load`` on the CPU, with classes that cannot be imported stubbed out.
+
+    Only for checkpoints the user trusts: the fallback unpickles arbitrary objects."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        pass
+    return torch.load(
+        path,
+        map_location="cpu",
+        weights_only=False,
+        pickle_module=type("M", (), {"Unpickler": _StubUnpickler, "load": pickle.load}),
+    )
+
+
+def _walk_module_tree(obj, prefix: str, out: Dict[str, np.ndarray]):
+    """Parameters and buffers of a (possibly stubbed) pickled nn.Module tree."""
+    d = getattr(obj, "__dict__", None)
+    if d is None:
+        return
+    for coll in ("_parameters", "_buffers"):
+        for k, v in (d.get(coll) or {}).items():
+            if v is not None and hasattr(v, "detach"):
+                out[prefix + k] = v.detach().cpu().numpy()
+    for k, v in (d.get("_modules") or {}).items():
+        _walk_module_tree(v, f"{prefix}{k}.", out)
+
+
+def extract_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """Flat ``name → ndarray`` from an ultralytics ``.pt`` or a raw state-dict ``.pth``."""
+    obj = load_torch_file(path)
+
+    def tensors_of(d):
+        return {
+            k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
+            for k, v in d.items()
+            if hasattr(v, "detach") or isinstance(v, np.ndarray)
+        }
+
+    if isinstance(obj, dict):
+        for key in ("state_dict", "model_state_dict", "ema", "model"):
+            if key not in obj:
+                continue
+            inner = obj[key]
+            if isinstance(inner, dict):
+                sd = tensors_of(inner)
+                if sd:
+                    return sd
+            elif isinstance(inner, torch.nn.Module):
+                return tensors_of(inner.state_dict())
+            out: Dict[str, np.ndarray] = {}
+            _walk_module_tree(inner, "", out)
+            if out:
+                return out
+        sd = tensors_of(obj)
+        if sd:
+            return sd
+    out = {}
+    _walk_module_tree(obj, "", out)
+    if out:
+        return out
+    raise ValueError(f"could not extract a state dict from {path}")
+
+
+# ---------------------------------------------------------------------------
+# Flax variables → ultralytics-keyed state dict
+# ---------------------------------------------------------------------------
+
+_INV_HEAD_NESTED = re.compile(r"(one2one_)?cv([234])_(\d+)\.c(\d+)_(\d+)\.")
+_INV_HEAD_FLAT = re.compile(r"(one2one_)?cv([234])_(\d+)\.c(\d+)\.")
+_INV_CIB = re.compile(r"cv1_(\d+)\.")
+_INV_M = re.compile(r"(?:^|(?<=\.))m_(\d+)\.")
+_INV_FFN = re.compile(r"ffn_(\d+)\.")
+_INV_MODEL = re.compile(r"^model_(\d+)\.")
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var"}
+
+
+def yolo_flax_path_to_torch_key(path, leaf: str) -> str:
+    """flax module path + leaf name → ultralytics state-dict key."""
+    k = ".".join(path) + "."
+    k = _INV_MODEL.sub(lambda m: f"model.{m.group(1)}.", k)
+    k = _INV_HEAD_NESTED.sub(
+        lambda m: f"{m.group(1) or ''}cv{m.group(2)}.{m.group(3)}.{m.group(4)}.{m.group(5)}.", k
+    )
+    k = _INV_HEAD_FLAT.sub(
+        lambda m: f"{m.group(1) or ''}cv{m.group(2)}.{m.group(3)}.{m.group(4)}.", k
+    )
+    k = _INV_CIB.sub(lambda m: f"cv1.{m.group(1)}.", k)
+    k = _INV_M.sub(lambda m: f"m.{m.group(1)}.", k)
+    k = _INV_FFN.sub(lambda m: f"ffn.{m.group(1)}.", k)
+    return k + _LEAF[leaf]
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def export_yolo_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX YOLO variables (nested dicts of arrays: ``params`` + ``batch_stats``)
+    → torch-layout state dict with ultralytics names, as numpy arrays."""
+    out: Dict[str, np.ndarray] = {}
+    for tree in (variables["params"], variables.get("batch_stats", {})):
+        for path, arr in _flatten(tree).items():
+            leaf = path[-1]
+            a = np.asarray(arr)
+            if leaf == "kernel" and a.ndim == 4:
+                if path[-2] == "upsample":  # ConvTranspose (kh, kw, I, O) → (I, O, kh, kw), flipped
+                    a = np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+                else:  # Conv (kh, kw, I/g, O) → (O, I/g, kh, kw)
+                    a = a.transpose(3, 2, 0, 1)
+            elif leaf == "kernel" and a.ndim == 2:
+                a = a.T
+            out[yolo_flax_path_to_torch_key(path[:-1], leaf)] = a
+    return out
+
+
+def load_yolo_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+    """Load an ultralytics-keyed state dict (numpy or torch values) into a port
+    YOLO model.  Every parameter and running statistic must be present; the
+    only keys allowed to go unused are DFL's fixed projection (the port decodes
+    DFL without a parameter).  BatchNorm's ``num_batches_tracked`` may be absent."""
+    tensors = {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+    missing, unexpected = model.load_state_dict(tensors, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    unexpected = [k for k in unexpected if ".dfl." not in k]
+    if missing or unexpected:
+        raise ValueError(
+            f"state dict does not fit the model: missing {missing[:8]}, unexpected {unexpected[:8]}"
+        )
