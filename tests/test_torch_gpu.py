@@ -1,5 +1,5 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
-``YOLO.predict`` on ``cuda`` against the same predictor on the CPU.
+``YOLO.predict`` and ``TrackerCore`` on ``cuda`` against the same code on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -17,6 +17,8 @@ import torch
 # another distribution's top-level ``tests`` package installed, which would shadow
 # ``tests.torch_parity``
 from torch_parity import assert_masks_match, proto_decode_inputs
+from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail, decode_tail_reference
+from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout, memory_readout_reference
 from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode, proto_decode_reference
 
 
@@ -82,3 +84,106 @@ def test_predict_on_the_card_matches_the_cpu(cuda, retina):
             np.testing.assert_allclose(g.boxes.xyxy[i], r.boxes.xyxy[j], rtol=0, atol=1e-2)
             np.testing.assert_allclose(g.boxes.conf[i], r.boxes.conf[j], rtol=0, atol=1e-4)
             assert (g.masks.data[i] == r.masks.data[j]).mean() >= 0.999
+
+
+# (Q, M, No, Cv, valid): the serving window and frame, ragged edges, no valid
+# element, and the first valid element in the last tile
+READOUT_CASES = [(8100, 12968, 4, 128, "random"), (1620, 12968, 4, 128, "all"), (52, 300, 3, 128, "random"),
+                 (100, 333, 2, 128, "none"), (70, 333, 2, 128, "last")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", READOUT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_memory_readout_kernel_matches_plain_version(cuda, case, dtype):
+    Q, M, No, Cv, valid = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+               for s in ((Q, 64), (M, 64), (No, M, Cv)))
+    ok = {"all": np.ones(M, bool), "none": np.zeros(M, bool), "random": rng.random(M) < 0.5,
+          "last": np.arange(M) >= M - 3}[valid]
+    ok = torch.from_numpy(ok).to(cuda)
+    before = memory_readout.launches
+    got = memory_readout(q, k, v, ok)
+    torch.cuda.synchronize()
+    assert memory_readout.launches == before + 1
+    ref = memory_readout_reference(q, k, v, ok)
+    assert got.dtype == dtype and tuple(got.shape) == (No, Q, Cv) and bool(torch.isfinite(got).all())
+    if valid == "none":
+        assert float(got.float().abs().max()) == 0.0
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-4                      # fp32 sums in another order
+    else:
+        assert bool((diff <= 2.0 ** -7 * ref.float().abs().clamp_min(1.0)).all())   # one bf16 ulp
+
+
+@pytest.mark.gpu
+def test_memory_readout_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = torch.zeros(4, 64, device=cuda), torch.zeros(6, 64, device=cuda), torch.zeros(2, 6, 128, device=cuda)
+    ok = torch.ones(6, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        memory_readout(q.double(), k.double(), v.double(), ok)
+    with pytest.raises(TypeError):
+        memory_readout(q.bfloat16(), k, v, ok)
+    with pytest.raises(ValueError):
+        memory_readout(q, k, torch.zeros(2, 6, 64, device=cuda), ok)
+    with pytest.raises(ValueError):
+        memory_readout(q, k, v.transpose(0, 1).contiguous().transpose(0, 1), ok)
+    with pytest.raises(ValueError):
+        memory_readout(torch.zeros(4, 32, device=cuda), torch.zeros(6, 32, device=cuda), v, ok)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)])
+def test_decode_tail_kernel_matches_plain_version(cuda, shape, dtype, tol):
+    from yolo_puncture_tpu_torch.track.network import MaskDecoder
+
+    N, No, H16, W16 = shape
+    torch.manual_seed(0)
+    dec = MaskDecoder().to(cuda).eval()
+    with torch.no_grad():
+        for bn in (dec.dec8.bn, dec.dec4.bn):               # non-trivial statistics
+            bn.running_mean.normal_(0, 0.1)
+            bn.running_var.uniform_(0.5, 1.5)
+            bn.weight.normal_(1, 0.1)
+            bn.bias.normal_(0, 0.1)
+    params = dec.tail_params(dtype)
+    rng = np.random.default_rng(4)
+    hidden, f8p, f4p = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+                        for s in ((N, No, H16, W16, 128), (N, 2 * H16, 2 * W16, 64), (N, 4 * H16, 4 * W16, 64)))
+    before = decode_tail.launches
+    got = decode_tail(params, hidden, f8p, f4p)
+    torch.cuda.synchronize()
+    assert decode_tail.launches == before + 1
+    ref = decode_tail_reference(params, hidden, f8p, f4p)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (N, No, 4 * H16, 4 * W16)
+    assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("long_term", [False, True])
+def test_tracker_on_the_card_matches_the_cpu(cuda, long_term):
+    from yolo_puncture_tpu_torch.track import ObjectInfo, TrackerCore
+
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 60, (9, 64, 96, 3)).astype(np.uint8)
+    for i in range(9):
+        frames[i, 20:32, 10 + 2 * i:42 + 2 * i] = 230
+    mask = np.zeros((64, 96), np.int32)
+    mask[20:32, 10:42] = 1
+    geo = dict(image_size=(64, 96), max_objects=3, mem_frames=2, mem_every=2, enable_long_term=long_term,
+               num_prototypes=8, max_long_term_elements=32, seed=5)
+    gpu, cpu = TrackerCore(**geo), TrackerCore(device="cpu", **geo)
+    counts = (memory_readout.launches, decode_tail.launches)
+    out = {}
+    for core in (gpu, cpu):
+        probs = [core.incorporate_detection(frames[0], mask, [ObjectInfo(id=1)])]
+        probs += [core.step(f) for f in frames[1:4]]
+        out[core] = np.stack(probs + list(core.step_batch(list(frames[4:9]))))
+    assert decode_tail.launches > counts[1]
+    assert (memory_readout.launches > counts[0]) == (not long_term)   # the usage-bearing readout is plain PyTorch
+    np.testing.assert_allclose(out[gpu], out[cpu], rtol=0, atol=1e-3)
+    assert gpu.memory.write_pos == cpu.memory.write_pos and gpu.memory.frame_idx == cpu.memory.frame_idx
+    assert gpu.memory.valid.tolist() == cpu.memory.valid.tolist()

@@ -88,3 +88,61 @@ def port_model_from_jax(version, scale, nc, task, variables):
     model = YOLOModel(version, scale, nc, task)
     load_yolo_state_dict(model, export_yolo_state_dict(variables))
     return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# Tracker
+# ---------------------------------------------------------------------------
+
+NEEDLE_CHECKPOINT = "resources/weights/tracker_propagation_needle.msgpack"
+SHARED_CHECKPOINT = "resources/weights/tracker_shared.msgpack"
+
+
+def repo_path(rel: str) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), rel)
+
+
+def seeded_tracker_variables(seed: int = 0, image_hw=(32, 64), with_pyramid_adapter: bool = False):
+    """numpy variable tree of the JAX ``PropagationNetwork`` drawn from ``seed``."""
+    import jax.numpy as jnp
+
+    from yolo_puncture_tpu.track.network import PropagationNetwork
+
+    net = PropagationNetwork(with_pyramid_adapter=with_pyramid_adapter)
+    return seeded_jax_variables(net, jnp.zeros((1, *image_hw, 3), jnp.float32), seed)
+
+
+def port_tracker_network(variables, **kw):
+    """The port's ``PropagationNetwork`` on the CPU, loaded from a JAX variable tree."""
+    from yolo_puncture_tpu_torch.track.network import PropagationNetwork
+    from yolo_puncture_tpu_torch.utils.convert import export_tracker_state_dict, load_tracker_state_dict
+
+    net = PropagationNetwork(**kw)
+    load_tracker_state_dict(net, export_tracker_state_dict(variables))
+    return net.eval()
+
+
+def to_nchw(a) -> torch.Tensor:
+    """numpy (…, H, W, C) → torch (…, C, H, W)."""
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(np.asarray(a), -1, -3)))
+
+
+def to_nhwc(t: torch.Tensor) -> np.ndarray:
+    """torch (…, C, H, W) → numpy (…, H, W, C)."""
+    return np.moveaxis(t.detach().numpy(), -3, -1)
+
+
+def bar_clip(n: int, h: int, w: int, seed: int = 0):
+    """uint8 RGB frames of a bright bar moving right over noise, and the first
+    frame's id mask (the bar is id 1)."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 60, (n, h, w, 3)).astype(np.uint8)
+    y0, bh, bw = h // 3, max(h // 5, 4), w // 3
+    for i in range(n):
+        x0 = w // 8 + 2 * i
+        frames[i, y0:y0 + bh, x0:x0 + bw] = 230
+    mask = np.zeros((h, w), np.int32)
+    mask[y0:y0 + bh, w // 8:w // 8 + bw] = 1
+    return frames, mask

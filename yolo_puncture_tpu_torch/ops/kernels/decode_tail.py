@@ -1,0 +1,224 @@
+"""Fused tracker decode tail: hand-written CUDA kernel and its plain PyTorch version.
+
+Counterpart of ``yolo_puncture_tpu/ops/pallas/decode_tail.py`` (``_kernel`` /
+``decode_tail_pallas``).  Per (frame, object) cell it computes the mask
+decoder's tail — 2× nearest upsample → 3×3 conv ``dec8`` → BN → SiLU → ``+ f8p``
+→ 2× upsample → 3×3 conv ``dec4`` → BN → SiLU → ``+ f4p`` → 1×1 ``out`` head —
+in the subpixel-packed form: each conv runs at the LOW resolution with the
+weights of ``subpix_up_weights`` (four parity groups of output channels,
+un-packed by depth-to-space), the head is applied per parity group, and the
+linear ``f4p`` term is a per-frame skip plane ``f4p · w_out + bias`` added at the
+end.  The stride-4 64-channel per-object tensor is never written to device memory.
+
+Layouts are the JAX package's, channels last: hidden (N, No, H16, W16, Cin),
+f8p (N, H8, W8, Cd), f4p (N, H4, W4, Cd) → logits (N, No, H4, W4) fp32.
+Activations are fp32 or bf16; accumulation is fp32; in bf16 the weights are
+rounded to bf16 first and the activations where the TPU kernel rounds them
+(after the first SiLU, before the head).
+
+The packed weights, the BN affines and the head's weights are prepared once per
+set of weights by ``pack_decode_tail_params`` and handed to every call.  The
+kernel lives in ``csrc/decode_tail.cu``; its header states the bound and the
+design (two stages, space tiled with halos, the zero taps of each parity group
+skipped).  On a CPU tensor the wrapper runs ``decode_tail_reference``; on a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from functools import lru_cache
+
+import torch
+import torch.nn.functional as F
+
+from yolo_puncture_tpu_torch import _build
+from yolo_puncture_tpu_torch.nn.common import BN_EPS
+
+KERNEL_IN_DIM, KERNEL_DEC_DIM = 128, 64  # the widths the kernel is compiled for
+
+
+def subpix_up_weights(K: torch.Tensor) -> torch.Tensor:
+    """3×3 kernel (3, 3, Cin, Cout) → (3, 3, Cin, 4·Cout): the one-conv form of
+    [nearest-neighbour 2× upsample → 3×3 stride-1 conv, pad 1].
+
+    Output parity (di, dj) of the upsampled conv only sees a 2×2 neighbourhood
+    of the low-resolution input (each 3×3 tap lands on a repeated pixel), so it
+    collapses to a 2×2 kernel with summed taps: output row 2i+di reads up-rows
+    2i+di+u−1, u ∈ {0, 1, 2}, and up-row p is low-row p//2, so di = 0 hits rows
+    {i−1, i, i} and di = 1 hits {i, i, i+1}.  The four parities pack into one
+    3×3-support conv with 4·Cout channels, group g = 2·di + dj on support rows
+    {di, di+1} and columns {dj, dj+1}."""
+    rows = (torch.stack([K[0], K[1] + K[2]]), torch.stack([K[0] + K[1], K[2]]))
+
+    def cols(r):
+        return (torch.stack([r[:, 0], r[:, 1] + r[:, 2]], dim=1),
+                torch.stack([r[:, 0] + r[:, 1], r[:, 2]], dim=1))
+
+    Cin, Cout = K.shape[2], K.shape[3]
+    W = K.new_zeros((3, 3, Cin, 4 * Cout))
+    for di, r in enumerate(rows):
+        for dj, w2 in enumerate(cols(r)):
+            g = (di * 2 + dj) * Cout
+            W[di:di + 2, dj:dj + 2, :, g:g + Cout] = w2
+    return W
+
+
+def depth_to_space2(y: torch.Tensor, Cout: int) -> torch.Tensor:
+    """(..., H, W, 4·Cout) parity-grouped, channels last → (..., 2H, 2W, Cout)."""
+    *lead, H, W, _ = y.shape
+    n = len(lead)
+    y = y.reshape(*lead, H, W, 2, 2, Cout)
+    return y.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4).reshape(*lead, 2 * H, 2 * W, Cout)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeTailParams:
+    """What the tail needs of the decoder's weights, prepared once: all fp32 and
+    contiguous on one device (in bf16 mode already rounded to bf16 values)."""
+
+    w8: torch.Tensor     # (3, 3, Cin, 4·Cd) packed dec8 kernel
+    a8: torch.Tensor     # (2, 4·Cd) BN scale row and bias row, tiled over the parity groups
+    w4: torch.Tensor     # (3, 3, Cd, 4·Cd) packed dec4 kernel
+    a4: torch.Tensor     # (2, 4·Cd)
+    w_out: torch.Tensor  # (Cd,) the 1×1 head
+    b_out: torch.Tensor  # (1,) its bias
+    dtype: torch.dtype   # the activation type these were rounded for
+
+
+def _bn_affine(bn: torch.nn.BatchNorm2d) -> torch.Tensor:
+    g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    b = bn.bias.float() - bn.running_mean.float() * g
+    return torch.stack([g.repeat(4), b.repeat(4)]).contiguous()
+
+
+@torch.no_grad()
+def pack_decode_tail_params(dec8, dec4, out, dtype: torch.dtype = torch.float32) -> DecodeTailParams:
+    """dec8, dec4: the decoder's ``ConvBN`` blocks (OIHW conv weights, BatchNorm
+    on its running statistics); out: its 1×1 ``Conv2d`` head.  ``dtype`` is the
+    activation type the tail will run in."""
+    if dec8.bn.eps != BN_EPS or dec4.bn.eps != BN_EPS:
+        raise ValueError("the decode tail folds BatchNorm with eps 1e-3")
+
+    def rounded(t):
+        return t.detach().float().to(dtype).float().contiguous().clone()
+
+    return DecodeTailParams(
+        w8=rounded(subpix_up_weights(dec8.conv.weight.float().permute(2, 3, 1, 0))),
+        a8=_bn_affine(dec8.bn),
+        w4=rounded(subpix_up_weights(dec4.conv.weight.float().permute(2, 3, 1, 0))),
+        a4=_bn_affine(dec4.bn),
+        w_out=rounded(out.weight[0, :, 0, 0]),
+        b_out=out.bias.detach().float().reshape(1).clone(),
+        dtype=dtype,
+    )
+
+
+def skip_plane(params: DecodeTailParams, f4p: torch.Tensor) -> torch.Tensor:
+    """(N, H4, W4) fp32: the head applied to the object-free skip, f4p · w_out + bias."""
+    return (torch.einsum("nhwc,c->nhw", f4p.float(), params.w_out) + params.b_out).contiguous()
+
+
+def decode_tail_reference(params: DecodeTailParams, hidden, f8p, f4p) -> torch.Tensor:
+    """Plain PyTorch version: the packed algebra with ``F.conv2d``."""
+    dtype = params.dtype
+    N, No, H16, W16, Cin = hidden.shape
+    Cd = params.w_out.shape[0]
+
+    def rnd(x):
+        return x if dtype == torch.float32 else x.to(dtype).float()
+
+    def stage(x, w, a):
+        """x (B, H, W, Cin) → SiLU(BN(packed conv)) (B, H, W, 4·Cd), fp32."""
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+        return F.silu(y * a[0] + a[1])
+
+    x = rnd(hidden.float()).reshape(N * No, H16, W16, Cin)
+    y8 = depth_to_space2(rnd(stage(x, params.w8, params.a8)), Cd)            # (N·No, H8, W8, Cd)
+    y8 = rnd(y8.reshape(N, No, 2 * H16, 2 * W16, Cd) + rnd(f8p.float())[:, None])
+    y4 = rnd(stage(y8.reshape(N * No, 2 * H16, 2 * W16, Cd), params.w4, params.a4))
+    o = torch.einsum("bhwgc,c->bhwg", y4.reshape(*y4.shape[:-1], 4, Cd), params.w_out)
+    o = depth_to_space2(o, 1).reshape(N, No, 4 * H16, 4 * W16)
+    return o + skip_plane(params, f4p)[:, None]
+
+
+@lru_cache(maxsize=None)
+def kernel_fn():
+    """The C entry point ``decode_tail`` (built on first use), argtypes set."""
+    fn = _build.load("decode_tail").decode_tail
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_args(params: DecodeTailParams, hidden, f8p, oskip, y8, out):
+    """Arguments of ``kernel_fn()`` for checked tensors, on the current stream."""
+    N, No, H16, W16, Cin = hidden.shape
+    return (
+        hidden.data_ptr(), f8p.data_ptr(), oskip.data_ptr(), params.w8.data_ptr(), params.a8.data_ptr(),
+        params.w4.data_ptr(), params.a4.data_ptr(), params.w_out.data_ptr(), y8.data_ptr(), out.data_ptr(),
+        N, No, H16, W16, Cin, params.w_out.shape[0], int(hidden.dtype == torch.bfloat16),
+        torch.cuda.current_stream(hidden.device).cuda_stream,
+    )
+
+
+def _check(params, hidden, f8p, f4p):
+    if hidden.dim() != 5 or f8p.dim() != 4 or f4p.dim() != 4:
+        raise ValueError("decode_tail wants hidden (N, No, H16, W16, Cin), f8p (N, H8, W8, Cd), f4p (N, H4, W4, Cd)")
+    N, No, H16, W16, Cin = hidden.shape
+    Cd = params.w_out.shape[0]
+    if (tuple(f8p.shape) != (N, 2 * H16, 2 * W16, Cd) or tuple(f4p.shape) != (N, 4 * H16, 4 * W16, Cd)
+            or tuple(params.w8.shape) != (3, 3, Cin, 4 * Cd)):
+        raise ValueError(
+            f"shape mismatch: hidden {tuple(hidden.shape)}, f8p {tuple(f8p.shape)}, f4p {tuple(f4p.shape)}, "
+            f"packed dec8 weights {tuple(params.w8.shape)}"
+        )
+    for name, t in (("f8p", f8p), ("f4p", f4p), ("weights", params.w8)):
+        if t.device != hidden.device:
+            raise ValueError(f"{name} is on {t.device}, hidden on {hidden.device}")
+    if hidden.dtype != params.dtype or f8p.dtype != params.dtype:
+        raise TypeError(
+            f"decode_tail: weights were prepared for {params.dtype}, hidden is {hidden.dtype}, f8p {f8p.dtype}"
+        )
+
+
+def decode_tail(params: DecodeTailParams, hidden, f8p, f4p) -> torch.Tensor:
+    """hidden (N, No, H16, W16, Cin), f8p (N, H8, W8, Cd), f4p (N, H4, W4, Cd),
+    channels last → stride-4 logits (N, No, H4, W4) fp32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (fp32 or
+    bf16 activations of the type ``params`` was prepared for, contiguous,
+    Cin == 128, Cd == 64) and anything else raises."""
+    _check(params, hidden, f8p, f4p)
+    if hidden.device.type == "cpu":
+        return decode_tail_reference(params, hidden, f8p, f4p)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"decode_tail runs on cpu or cuda, not {hidden.device}")
+    if hidden.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_tail kernel takes fp32 or bf16 activations, got {hidden.dtype}")
+    for name, t in (("hidden", hidden), ("f8p", f8p)):
+        if not t.is_contiguous():
+            raise ValueError(f"decode_tail kernel takes contiguous {name}")
+    N, No, H16, W16, Cin = hidden.shape
+    Cd = params.w_out.shape[0]
+    if Cin != KERNEL_IN_DIM or Cd != KERNEL_DEC_DIM:
+        raise ValueError(
+            f"decode_tail kernel is compiled for Cin == {KERNEL_IN_DIM}, Cd == {KERNEL_DEC_DIM}, got {Cin}, {Cd}"
+        )
+    if N * No > 65535:
+        raise ValueError(f"decode_tail kernel takes at most 65535 (frame, object) cells, got {N * No}")
+    out = torch.empty((N, No, 4 * H16, 4 * W16), dtype=torch.float32, device=hidden.device)
+    if out.numel() == 0:
+        return out
+    oskip = skip_plane(params, f4p)
+    y8 = torch.empty((N * No, 2 * H16, 2 * W16, Cd), dtype=hidden.dtype, device=hidden.device)  # stage-1 output
+    with torch.cuda.device(hidden.device):
+        rc = kernel_fn()(*kernel_args(params, hidden, f8p, oskip, y8, out))
+    if rc != 0:
+        raise RuntimeError(f"decode_tail kernel launch failed: {_build.error_string('decode_tail', rc)}")
+    decode_tail.launches += 1
+    return out
+
+
+decode_tail.launches = 0  # wrapper calls that launched the kernel's two stages, since the last reset

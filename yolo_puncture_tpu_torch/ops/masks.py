@@ -36,11 +36,18 @@ def _interp_matrix(src: int, dst: int, window=None) -> np.ndarray:
     return M
 
 
+@lru_cache(maxsize=32)
+def interp_matrix_on(src: int, dst: int, window, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``_interp_matrix`` as a tensor on ``device``, made once per geometry
+    (cached; callers must not write to it)."""
+    return torch.from_numpy(_interp_matrix(src, dst, window)).to(device=device, dtype=dtype)
+
+
 def upsample_bilinear_matmul(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """(…, h, w) → (…, H, W) bilinear upsample as two matmuls."""
     h, w = x.shape[-2:]
-    mh = torch.from_numpy(_interp_matrix(h, H)).to(device=x.device, dtype=x.dtype)
-    mw = torch.from_numpy(_interp_matrix(w, W)).to(device=x.device, dtype=x.dtype)
+    mh = interp_matrix_on(h, H, None, x.device, x.dtype)
+    mw = interp_matrix_on(w, W, None, x.device, x.dtype)
     return torch.matmul(mh.T, torch.matmul(x, mw))
 
 

@@ -29,7 +29,12 @@ from yolo_puncture_tpu_torch.ops.letterbox import letterbox, letterbox_params, s
 from yolo_puncture_tpu_torch.ops.masks import crop_masks, decode_masks, paste_masks_to_original
 from yolo_puncture_tpu_torch.ops.nms import select_detections
 from yolo_puncture_tpu_torch.predict.results import Boxes, Masks, Results
-from yolo_puncture_tpu_torch.utils.convert import extract_state_dict, load_yolo_state_dict
+from yolo_puncture_tpu_torch.utils.convert import (
+    export_yolo_state_dict,
+    extract_state_dict,
+    load_yolo_state_dict,
+    read_msgpack,
+)
 from yolo_puncture_tpu_torch.utils.device import resolve_device
 
 _NAME_RE = re.compile(r"yolo(?:v)?(\d+)([nsmblx])(-seg)?", re.IGNORECASE)
@@ -51,8 +56,9 @@ def parse_model_name(name: str) -> Tuple[str, str, str]:
 class YOLO:
     """Drop-in predictor for the reference's ``YOLO(weights)`` usage.
 
-    weights: a model name ('yolo10s-seg') or an ultralytics ``.pt`` / state-dict
-    ``.pth`` path.  A name or a missing file gives a seeded random init.
+    weights: a model name ('yolo10s-seg'), an ultralytics ``.pt`` / state-dict
+    ``.pth`` path, or a ``.msgpack`` file of the JAX package's flax variables.
+    A name or a missing file gives a seeded random init.
     device: ``None`` (the card) or ``"cpu"``; without a card only ``"cpu"`` works.
     """
 
@@ -88,8 +94,9 @@ class YOLO:
             if path.endswith((".pt", ".pth")):
                 load_yolo_state_dict(self.model, extract_state_dict(path))
                 return
-            if path.endswith(".msgpack"):
-                raise NotImplementedError("flax msgpack weights are not read by the port yet")
+            if path.endswith(".msgpack"):  # the JAX package's flax variables
+                load_yolo_state_dict(self.model, export_yolo_state_dict(read_msgpack(path)))
+                return
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
 
     def to(self, device) -> "YOLO":

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX YOLO variables and ultralytics ``.pt`` files → the port's state_dict.
+"""Weight bridge: JAX variables, flax msgpack files and ultralytics ``.pt`` files → the port's state_dicts.
 
 The port's YOLO modules carry ultralytics state-dict names
 (``model.0.conv.weight``, ``model.23.one2one_cv3.0.0.0.conv.weight``, …), so an
@@ -14,13 +14,22 @@ only a key map and a layout change:
 This is the port's own copy of the JAX package's ``utils/torch_convert.py``
 (``yolo_flax_path_to_torch_key``, ``export_yolo_state_dict`` and the
 stub-unpickler ``.pt`` reader); the port imports nothing from that package.
+
+``read_msgpack`` reads the checkpoints that ``flax.serialization`` wrote
+(``resources/weights/*.msgpack``) with neither flax nor the ``msgpack`` package:
+a small decoder of the msgpack wire format, with flax's extension type 1 (an
+ndarray packed as ``(shape, dtype name, bytes)``).  ``export_tracker_state_dict``
+maps the tracker's variable tree onto ``track/network.py PropagationNetwork``:
+the port's modules carry the flax attribute names and concatenate channels in
+the JAX package's order, so the map is HWIO → OIHW plus the BatchNorm leaf names.
 """
 
 from __future__ import annotations
 
 import pickle
 import re
-from typing import Any, Dict, Mapping
+import struct
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -194,4 +203,140 @@ def load_yolo_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
     if missing or unexpected:
         raise ValueError(
             f"state dict does not fit the model: missing {missing[:8]}, unexpected {unexpected[:8]}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# flax msgpack files
+# ---------------------------------------------------------------------------
+
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3  # flax.serialization's extension types
+
+
+class _MsgpackReader:
+    """Decoder for the subset of msgpack that flax checkpoints use: maps, arrays,
+    strings, integers, floats, booleans, nil, bin and ext."""
+
+    _FIXED = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+              0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+    _LEN = {1: ">B", 2: ">H", 4: ">I"}
+
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("msgpack data ends inside a value")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _uint(self, width: int) -> int:
+        return struct.unpack(self._LEN[width], self._take(width))[0]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+    def _ext(self, n: int):
+        code = struct.unpack(">b", self._take(1))[0]
+        payload = bytes(self._take(n))
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            shape, dtype_name, raw = _MsgpackReader(payload).read()
+            try:
+                dtype = np.dtype(dtype_name)
+            except TypeError as e:
+                raise NotImplementedError(f"msgpack ndarray of dtype {dtype_name!r} is not read") from e
+            arr = np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
+            return arr if code == _EXT_NDARRAY else arr[()]
+        raise NotImplementedError(f"msgpack extension type {code} is not read")
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return bytes(self._take(b & 0x1F)).decode("utf-8")
+        if b == 0xC0:
+            return None
+        if b in (0xC2, 0xC3):
+            return b == 0xC3
+        if b in (0xC4, 0xC5, 0xC6):
+            return bytes(self._take(self._uint(1 << (b - 0xC4))))
+        if b in (0xC7, 0xC8, 0xC9):
+            return self._ext(self._uint(1 << (b - 0xC7)))
+        if b in self._FIXED:
+            fmt = self._FIXED[b]
+            return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+        if 0xD4 <= b <= 0xD8:
+            return self._ext(1 << (b - 0xD4))
+        if b in (0xD9, 0xDA, 0xDB):
+            return bytes(self._take(self._uint(1 << (b - 0xD9)))).decode("utf-8")
+        if b in (0xDC, 0xDD):
+            return [self.read() for _ in range(self._uint(2 << (b - 0xDC)))]
+        if b in (0xDE, 0xDF):
+            return self._map(self._uint(2 << (b - 0xDE)))
+        raise ValueError(f"unknown msgpack type byte 0x{b:02x}")
+
+
+def read_msgpack(src) -> Any:
+    """Decode a flax msgpack checkpoint (a path or its bytes) into nested dicts
+    of numpy arrays, as ``flax.serialization.msgpack_restore`` does."""
+    if isinstance(src, (bytes, bytearray, memoryview)):
+        data = bytes(src)
+    else:
+        with open(src, "rb") as f:
+            data = f.read()
+    reader = _MsgpackReader(data)
+    out = reader.read()
+    if reader.pos != len(data):
+        raise ValueError(f"{len(data) - reader.pos} bytes left over after the msgpack value")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tracker variables → PropagationNetwork state dict
+# ---------------------------------------------------------------------------
+
+
+def tracker_flax_path_to_torch_key(path: Tuple[str, ...], leaf: str) -> str:
+    """flax module path + leaf name of a tracker variable → the port's key
+    (``('decoder', 'dec8', 'conv')``, ``'kernel'`` → ``decoder.dec8.conv.weight``;
+    C2f's ``m_0`` is ``m.0`` in the port's ModuleList)."""
+    return _INV_M.sub(lambda m: f"m.{m.group(1)}.", ".".join(path) + ".") + _LEAF[leaf]
+
+
+def export_tracker_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Tracker variables (``params`` + ``batch_stats`` nested dicts, from
+    ``read_msgpack`` or the JAX package) → state dict of the port's
+    ``PropagationNetwork``, as numpy arrays: conv kernels HWIO → OIHW."""
+    out: Dict[str, np.ndarray] = {}
+    for tree in (variables["params"], variables.get("batch_stats", {})):
+        for path, arr in _flatten(tree).items():
+            a = np.asarray(arr)
+            if path[-1] == "kernel":
+                a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+            out[tracker_flax_path_to_torch_key(path[:-1], path[-1])] = a
+    return out
+
+
+def load_tracker_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+    """Load ``export_tracker_state_dict``'s output into a ``PropagationNetwork``.
+    Every parameter and running statistic must be present and used."""
+    tensors = {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+    missing, unexpected = model.load_state_dict(tensors, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(
+            f"state dict does not fit the tracker: missing {missing[:8]}, unexpected {list(unexpected)[:8]}"
         )
