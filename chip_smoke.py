@@ -7,14 +7,19 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   1. build every CUDA kernel from ``yolo_puncture_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card:
-     ``proto_decode``, ``memory_readout`` and ``decode_tail`` (fp32 and bf16);
+     ``proto_decode``, ``memory_readout`` (fp32 and bf16, ragged shapes, odd
+     object counts, the memory split over blocks, a softmax spread over the
+     memory and one carried by a few elements; fp32 also against a float64
+     readout on large logits) and ``decode_tail``;
   3. drive the main paths with every kernel's launch count set to 0 just before
      and read just after, each kernel of a path must have run:
      ``YOLO("yolo10s-seg").predict`` at imgsz 640 on four seeded 720×1280 frames
      (non-retina, then retina), and the mask tracker ``TrackerCore`` at 480×864
      with the shipped needle checkpoint on seeded 720×1280 frames of a moving
      bright bar (``incorporate_detection``, 5× ``step``, ``step_batch`` of 12
-     frames, a second ``incorporate_detection``);
+     frames, a second ``incorporate_detection``), then the same tracker in bf16
+     (``incorporate_detection``, 5× ``step``, one window), held against the fp32
+     run on the card;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -46,16 +51,41 @@ import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+FP32_FLOP_PER_S = 67e12    # outside the tensor cores
+TF32_FLOP_PER_S = 495e12   # tensor cores
+BF16_FLOP_PER_S = 989e12   # tensor cores
 
 SOFT_ATOL = 1e-6   # soft masks: kernel vs plain version (fp32 sums in another order)
 THRESH_BAND = 1e-6  # binary masks may differ only where the soft value is this close to the threshold
 # memory_readout and decode_tail against their plain versions, fp32: sums of up to
 # 13 k (readout) and 1152 (tail) fp32 terms taken in another order
 FP32_TOL = 2e-4
-# bf16 readout: both sides round the same fp32 result to bf16, so they differ by
-# at most one bf16 ulp (2^-7 relative) where the fp32 values straddle a rounding edge
-READOUT_BF16_TOL = 2.0 ** -7
+# bf16 readout, held element by element.  Both sides round p to bf16 before it meets the
+# values, but the kernel rounds exp(s - running max) and rescales later while the plain
+# version rounds exp(s - final max), so each p may round the other way on each side: a
+# relative 2^-8 (half an ulp of 8 significant bits) twice, at most 2^-7 * sum(p |v|) / l
+# in the output.  Where many elements carry a row the roundings are independent and
+# cancel: their sum has a deviation of 2^-8 * sqrt(2/3) * sqrt(sum(p^2 v^2)) / l, and
+# 2^-5 of that root is ten deviations.  The limit takes the smaller of the two, from the
+# plain version's own p, so it is a few 1e-4 where a softmax over thousands of elements
+# gives outputs of a few 1e-2, and about 1e-2 where a few elements give outputs near 1.
+# On top, both round the result to bf16: one ulp (2^-7 relative, no clamp) where the two
+# fp32 values straddle a rounding edge.  The floor covers fp32 sums in another order.
+READOUT_BF16_ULP = 2.0 ** -7
+READOUT_BF16_P_WORST = 2.0 ** -7
+READOUT_BF16_P_SPREAD = 2.0 ** -5
+READOUT_BF16_FLOOR = 2e-5
+# fp32 readout against a float64 readout on logits of 30 to 80: three error-compensated
+# TF32 products are fp32-class, one TF32 product is a hundred times off
+# (tests/test_torch_memory_readout.py shows both in a plain emulation).  An fp32 logit of
+# 70 is itself rounded by 4e-6, which the exponential passes on, so at the large shapes
+# no fp32 readout stays within 2e-6: the kernel may be twice as far from float64 as the
+# plain fp32 version is on the same inputs (1e-5 at the window), plus this
+READOUT_FP64_TOL = 2e-6
+# the bf16 tracker against the fp32 tracker, both on the card: the limits of the CPU
+# test of the same pair (tests/test_torch_track_core.py)
+TRACK_BF16_PROB_TOL = 0.1
+TRACK_BF16_ID_AGREE = 0.99
 # bf16 tail: an activation rounded the other way (one ulp, 2^-8 relative) moves a
 # logit by about 1e-3, and a few hundred of them meet in one logit
 TAIL_BF16_TOL = 5e-2
@@ -233,54 +263,153 @@ def compare_to_cpu(gpu_r, cpu_r) -> dict:
     return out
 
 
-def readout_inputs(Q, M, No, Cv, dtype, seed, device, valid="all"):
+def readout_inputs(Q, M, No, Cv, dtype, seed, device, valid="all", scale=1.0, match=False):
     """Seeded query, keys, values and validity for the memory readout.  ``valid``:
-    'all', 'none', 'random' (half), or 'last' (only the last three elements, so
-    that the first valid element lies in the last tile)."""
+    'all', 'none', 'random' (half), 'last' (only the last three elements, so
+    that the first valid element lies in the last tile), or 'slots' (every other
+    run of 1620 elements, a ring slot at 480×864, so that tiles straddle an edge).
+    ``scale`` multiplies query and keys: at 1 a row's softmax spreads over
+    thousands of elements, at 2 the logits have a deviation of 4 and a few
+    elements anywhere in the memory carry each row.  ``match`` adds 1.2 × query
+    row i to key i and makes it valid, so that with ``scale`` 2 every row has one
+    logit of 30 and more."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((Q, 64)).astype(np.float32)
-    k = rng.standard_normal((M, 64)).astype(np.float32)
+    q = rng.standard_normal((Q, 64)).astype(np.float32) * np.float32(scale)
+    k = rng.standard_normal((M, 64)).astype(np.float32) * np.float32(scale)
     v = rng.standard_normal((No, M, Cv)).astype(np.float32)
     mask = {"all": np.ones(M, bool), "none": np.zeros(M, bool), "random": rng.random(M) < 0.5,
-            "last": np.arange(M) >= M - 3}[valid]
+            "last": np.arange(M) >= M - 3, "slots": (np.arange(M) // 1620) % 2 == 0}[valid]
+    if match:
+        n = min(Q, M)
+        k[:n] += np.float32(1.2) * q[:n]
+        mask[:n] = True
     to = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)  # noqa: E731
     return to(q), to(k), to(v), torch.from_numpy(mask).to(device)
 
 
-def check_memory_readout(device) -> float:
-    """Kernel vs plain version on the card; returns the largest fp32 difference."""
-    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout, memory_readout_reference
+def softmax_weights(q, k, ok, dtype):
+    """Plain masked softmax of the readout in ``dtype``: the unnormalised weights
+    p (Q, M), exp of the logit less the row's max, and their floored sum l (Q, 1)."""
+    s = torch.matmul(q.to(dtype), k.to(dtype).T) * q.shape[-1] ** -0.5
+    s = s.masked_fill(~ok[None, :], float("-inf"))
+    m = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m))) * ok[None, :]
+    return p, p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
-    worst = 0.0
-    cases = [  # (Q, M, No, Cv, valid): the window, one frame, ragged, all invalid, late first valid
-        (8100, 12968, 4, 128, "all"),
-        (8100, 12968, 4, 128, "random"),
-        (1620, 12968, 4, 128, "all"),
-        (52, 300, 3, 128, "random"),
-        (100, 333, 2, 128, "none"),
-        (1620, 12968, 4, 128, "last"),
-    ]
-    for i, (Q, M, No, Cv, valid) in enumerate(cases):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, ok = readout_inputs(Q, M, No, Cv, dtype, 200 + i, device, valid)
-            got = memory_readout(q, k, v, ok)
-            ref = memory_readout_reference(q, k, v, ok)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or tuple(got.shape) != (No, Q, Cv) or not torch.isfinite(got).all():
-                raise AssertionError(f"memory_readout gave {got.dtype} {tuple(got.shape)}, finite: "
-                                     f"{bool(torch.isfinite(got).all())}")
-            if valid == "none" and float(got.float().abs().max()) != 0.0:
-                raise AssertionError("rows with no valid element must read exact zeros")
-            diff = (got.float() - ref.float()).abs()
-            if dtype == torch.float32:
-                err, tol = float(diff.max()), FP32_TOL
-                worst = max(worst, err)
-            else:
-                err, tol = float((diff / ref.float().abs().clamp_min(1.0)).max()), READOUT_BF16_TOL
-            log(f"memory_readout Q={Q} M={M} No={No} Cv={Cv} valid={valid} {str(dtype)[6:]}: "
-                f"max {'abs' if dtype == torch.float32 else 'rel-to-max(1,|ref|)'} diff {err:.3g} (tol {tol:.3g})")
-            if not err <= tol:
-                raise AssertionError(f"memory_readout differs from its plain version by {err} > {tol}")
+
+def readout_bf16_limit(q, k, v, ok, ref):
+    """Largest difference allowed at each element of a bf16 readout against its
+    plain version ``ref`` (see READOUT_BF16_ULP and the lines above it)."""
+    p, l = softmax_weights(q, k, ok, torch.float32)
+    vf = v.float()
+    worst = READOUT_BF16_P_WORST * torch.matmul(p, vf.abs())
+    spread = READOUT_BF16_P_SPREAD * torch.matmul(p * p, vf * vf).sqrt()
+    return READOUT_BF16_ULP * ref.float().abs() + torch.minimum(worst, spread) / l[None] + READOUT_BF16_FLOOR
+
+
+# (Q, M, No, valid, forced number of memory splits or None for the wrapper's choice)
+READOUT_CASES = [
+    (8100, 12968, 4, "all", None),       # the window
+    (8100, 12968, 4, "random", None),
+    (1620, 12968, 4, "all", None),       # one frame: the wrapper splits the memory
+    (52, 300, 3, "random", None),        # ragged, an odd object count
+    (100, 333, 2, "none", None),         # no valid element: exact zeros
+    (1620, 12968, 4, "last", None),      # the first valid element in the last tile
+    (100, 300, 1, "random", None),       # half an object pair
+    (100, 300, 5, "random", None),       # two pairs and a half
+    (1, 300, 2, "random", None),
+    (65, 300, 2, "random", None),        # one row into the second warpgroup
+    (52, 63, 2, "all", None),
+    (52, 65, 2, "all", None),            # one element into the second tile
+    (1620, 12968, 4, "slots", None),     # tiles that straddle a slot edge
+    (52, 300, 3, "random", 3),           # the split forced at a small shape
+    (65, 333, 5, "last", 3),             # two of three splits with no valid element
+    (8100, 12968, 4, "slots", 2),
+]
+# the same tuples, for the fp32 kernel against a float64 readout on matched inputs
+READOUT_FP64_CASES = [(96, 640, 2, "random", None), (96, 640, 2, "random", 3),
+                      (1620, 12968, 4, "random", None), (8100, 12968, 4, "slots", None)]
+
+
+def launch_readout(q, k, v, ok, n_split=None):
+    """``memory_readout`` with the wrapper's own choice of memory splits or with
+    ``n_split`` forced; returns (readout, splits used)."""
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+
+    chosen = mr.split_for
+    try:
+        if n_split is not None:
+            mr.split_for = lambda *a: n_split
+        return mr.memory_readout(q, k, v, ok), mr.split_for(q.shape[0], k.shape[0], q.device)
+    finally:
+        mr.split_for = chosen
+
+
+def check_readout_case(case, dtype, scale, device, seed=200) -> float:
+    """One case of READOUT_CASES on the card, kernel against plain version: fp32
+    within FP32_TOL, bf16 within ``readout_bf16_limit`` at every element.  Raises
+    where they disagree; returns the largest absolute difference."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout_reference
+
+    Q, M, No, valid, n_split = case
+    q, k, v, ok = readout_inputs(Q, M, No, 128, dtype, seed, device, valid, scale)
+    got, used = launch_readout(q, k, v, ok, n_split)
+    ref = memory_readout_reference(q, k, v, ok)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or tuple(got.shape) != (No, Q, 128) or not torch.isfinite(got).all():
+        raise AssertionError(f"memory_readout gave {got.dtype} {tuple(got.shape)}, finite: "
+                             f"{bool(torch.isfinite(got).all())}")
+    if valid == "none" and float(got.float().abs().max()) != 0.0:
+        raise AssertionError("rows with no valid element must read exact zeros")
+    diff = (got.float() - ref.float()).abs()
+    limit = torch.full_like(diff, FP32_TOL) if dtype == torch.float32 else readout_bf16_limit(q, k, v, ok, ref)
+    at = int((diff / limit).argmax())
+    log(f"memory_readout Q={Q} M={M} No={No} valid={valid} scale={scale:g} splits={used} {str(dtype)[6:]}: "
+        f"max abs diff {float(diff.max()):.3g}; nearest its limit {float(diff.flatten()[at]):.3g} of "
+        f"{float(limit.flatten()[at]):.3g}; limit median {float(limit.median()):.3g} where |plain| has median "
+        f"{float(ref.float().abs().median()):.3g} and max {float(ref.float().abs().max()):.3g}")
+    if not bool((diff <= limit).all()):
+        raise AssertionError(f"memory_readout differs from its plain version by {float(diff.flatten()[at])} "
+                             f"where the limit is {float(limit.flatten()[at])}")
+    return float(diff.max())
+
+
+def check_readout_fp64_case(case, device, seed=260) -> float:
+    """One case of READOUT_FP64_CASES on the card: the fp32 kernel on matched
+    inputs (logits of 30 and more) against a float64 readout: no farther from it
+    than twice the plain fp32 version plus READOUT_FP64_TOL, which one TF32 product per
+    fp32 product would miss a hundredfold.  Raises where it does not hold; returns
+    the largest absolute difference."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout_reference
+
+    Q, M, No, valid, n_split = case
+    q, k, v, ok = readout_inputs(Q, M, No, 128, torch.float32, seed, device, valid, scale=2.0, match=True)
+    got, used = launch_readout(q, k, v, ok, n_split)
+    p, l = softmax_weights(q, k, ok, torch.float64)
+    ref = torch.matmul(p, v.double()) / l[None]
+    err = float((got.double() - ref).abs().max())
+    plain_err = float((memory_readout_reference(q, k, v, ok).double() - ref).abs().max())
+    s_max = float((torch.matmul(q.double(), k.double().T).abs() * ok[None, :]).max()) / 8.0
+    log(f"memory_readout Q={Q} M={M} No={No} valid={valid} splits={used} fp32 on matched inputs, |s| up to "
+        f"{s_max:.1f}: max abs diff to a float64 readout {err:.3g} (the plain fp32 version {plain_err:.3g}; "
+        f"limit {2 * plain_err + READOUT_FP64_TOL:.3g})")
+    if not (s_max >= 25.0 and err <= 2 * plain_err + READOUT_FP64_TOL):
+        raise AssertionError(f"the fp32 readout is {err} from a float64 readout (> {2 * plain_err + READOUT_FP64_TOL}) "
+                             f"with logits up to {s_max}")
+    return err
+
+
+def check_memory_readout(device) -> dict:
+    """Kernel vs plain version on the card at every case, flat and peaked softmax,
+    and the fp32 kernel vs a float64 readout; returns the largest absolute
+    difference to the plain version in fp32 and in bf16."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, case in enumerate(READOUT_CASES):
+        for dtype in worst:
+            for scale in (1.0, 2.0):
+                worst[dtype] = max(worst[dtype], check_readout_case(case, dtype, scale, device, 200 + i))
+    for i, case in enumerate(READOUT_FP64_CASES):
+        check_readout_fp64_case(case, device, 260 + i)
     return worst
 
 
@@ -424,26 +553,44 @@ def host_ms(fn, repeats: int = 3) -> list:
     return out
 
 
-def kernel_entry(name, replaces, launches, max_err, ms, plain_ms, library_ms, bytes_moved, flops) -> dict:
-    """One entry of the ``kernels`` line; the bound is the larger of the bytes
-    over the memory rate and the operations over the fp32 rate."""
+def roofline_ms(name, bytes_moved, flops, flop_rate):
+    """(bound in ms, 'bytes' or 'operations'): the larger of the bytes over the
+    memory rate and the operations over ``flop_rate``, the card's peak for the
+    type the kernel multiplies in."""
     bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bound_ops_ms = flops / flop_rate * 1e3
     log(f"{name}: bound {max(bound_bytes_ms, bound_ops_ms):.5f} ms "
-        f"(bytes {bound_bytes_ms:.5f} ms, operations {bound_ops_ms:.5f} ms)")
+        f"(bytes {bound_bytes_ms:.5f} ms, operations {bound_ops_ms:.5f} ms at {flop_rate / 1e12:.0f} TFLOP/s)")
+    return max(bound_bytes_ms, bound_ops_ms), "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+
+
+def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, library_ms, bytes_moved, flops,
+                 flop_rate) -> dict:
+    """One entry of the ``kernels`` line."""
+    bound_ms, bound_by = roofline_ms(name, bytes_moved, flops, flop_rate)
     return {
         "name": name,
         "route": "cuda",
-        "source": f"yolo_puncture_tpu_torch/csrc/{name}.cu",
+        "source": f"yolo_puncture_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
-        "launches": launches[name],
-        "max_abs_err": max_err[name],
+        "launches": launches,
+        "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def interleaved_times_ms(fns: dict, launches: int = 200, repeats: int = 5) -> dict:
+    """{name: sorted mean times of ``launches`` back-to-back calls}, ``repeats``
+    of them each, taken in turns so that a drift of the card hits all alike."""
+    out = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            out[name].append(cuda_time_ms(fn, iters=launches))
+    return {name: sorted(v) for name, v in out.items()}
 
 
 def tracker_stage_ms(core, frames) -> dict:
@@ -532,8 +679,10 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions -------------------------------
     net = needle_network(device)
+    readout_err = check_memory_readout(device)
     max_err = {"proto_decode": check_proto_decode(device),
-               "memory_readout": check_memory_readout(device),
+               "memory_readout": readout_err[torch.float32],
+               "memory_readout_bf16": readout_err[torch.bfloat16],
                "decode_tail": check_decode_tail(net, device)}
 
     # -- 3a. main path of the detector ----------------------------------------------
@@ -570,6 +719,24 @@ def main() -> int:
     log(f"tracker: IoU of the tracked id against the bar per frame {bar_iou(probs, track_masks, core.image_size)}, "
         f"ring valid {core.memory.valid.tolist()}, write_pos {core.memory.write_pos}, "
         f"frame_idx {core.memory.frame_idx}")
+
+    # -- 3c. the tracker in bf16, against the fp32 run above ------------------------------------
+    core16 = TrackerCore(enable_long_term=False, variables=NEEDLE, dtype=torch.bfloat16, **TRACK_GEOMETRY)
+    mr.memory_readout.launches = dt.decode_tail.launches = 0
+    probs16 = drive_tracker(core16, track_frames, track_masks, upto_first_window=True)
+    torch.cuda.synchronize()
+    launches["memory_readout_bf16"] = mr.memory_readout.launches
+    check_tracker_probs(probs16, 11, core16)
+    prob_err16 = float(np.abs(probs16 - probs[:11]).max())
+    id_agree16 = float((probs16.argmax(1) == probs[:11].argmax(1)).mean())
+    log(f"tracker in bf16 vs fp32 on the card, 11 frames (incorporate, 5 steps, one window): memory_readout launched "
+        f"{launches['memory_readout_bf16']} times, decode_tail {dt.decode_tail.launches}; max abs prob diff "
+        f"{prob_err16:.3g} (tol {TRACK_BF16_PROB_TOL}), id maps equal {id_agree16:.6f} (at least "
+        f"{TRACK_BF16_ID_AGREE}), IoU {bar_iou(probs16, track_masks, core16.image_size)}")
+    if launches["memory_readout_bf16"] <= 0 or dt.decode_tail.launches <= 0:
+        raise AssertionError("the bf16 tracker did not launch both of its kernels")
+    if not (prob_err16 <= TRACK_BF16_PROB_TOL and id_agree16 >= TRACK_BF16_ID_AGREE):
+        raise AssertionError("the bf16 tracker disagrees with the fp32 tracker")
 
     # -- 4. the same calls on the CPU ------------------------------------------------------
     det_cpu = YOLO("yolo10s-seg", nc=1, seed=0, device="cpu")
@@ -613,19 +780,27 @@ def main() -> int:
     out = torch.empty((B, N, Hp, Wp), dtype=torch.float32, device=device)
     args = kernel_args(protos, coeffs, boxes, out, None, True)
     launch = kernel_fn()
-    kernel_ms = cuda_time_ms(lambda: launch(*args), iters=200)  # the bare launch: device time
     wrapper_ms = cuda_time_ms(lambda: proto_decode(protos, coeffs, boxes, None, True), iters=200)
-    plain_ms = cuda_time_ms(lambda: proto_decode_reference(protos, coeffs, boxes, None, True))
     pflat = protos.reshape(B, nm, Hp * Wp)
-    library_ms = cuda_time_ms(lambda: torch.matmul(coeffs, pflat))
+    # the bare launch (device time), its plain version and the product alone through cuBLAS, in turns
+    times = interleaved_times_ms({"kernel": lambda: launch(*args),
+                                  "plain": lambda: proto_decode_reference(protos, coeffs, boxes, None, True),
+                                  "matmul": lambda: torch.matmul(coeffs, pflat)})
+    kernel_ms, plain_ms, library_ms = (times[n][2] for n in ("kernel", "plain", "matmul"))
     P = Hp * Wp
     bytes_moved = 4 * (B * nm * P + B * N * nm + B * N * 4 + B * N * P)
     flops = 2 * B * N * P * nm
-    log(f"proto_decode B={B} N={N} {Hp}x{Wp}: kernel {kernel_ms:.5f} ms (through the Python "
-        f"wrapper {wrapper_ms:.5f} ms), plain {plain_ms:.5f} ms, torch.matmul {library_ms:.5f} ms, "
+    spread = "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in times.items())
+    tk, tm = times["kernel"], times["matmul"]
+    order = ("every kernel repeat is below every matmul repeat" if tk[-1] < tm[0] else
+             "every matmul repeat is below every kernel repeat" if tm[-1] < tk[0] else "the repeats overlap")
+    log(f"proto_decode B={B} N={N} {Hp}x{Wp}, ms over 5 repeats of 200 launches: {spread}; through the Python "
+        f"wrapper {wrapper_ms:.5f}; the {'kernel' if kernel_ms < library_ms else 'matmul'} is faster by "
+        f"{abs(library_ms - kernel_ms) / max(kernel_ms, library_ms) * 100:.1f} % at the median, {order} "
         f"({bytes_moved} B, {flops} FLOP) [{smi}]")
-    kernels = [kernel_entry("proto_decode", "yolo_puncture_tpu/ops/pallas/proto_decode.py:23",
-                            launches, max_err, kernel_ms, plain_ms, library_ms, bytes_moved, flops)]
+    kernels = [kernel_entry("proto_decode", "proto_decode", "yolo_puncture_tpu/ops/pallas/proto_decode.py:23",
+                            launches["proto_decode"], max_err["proto_decode"], kernel_ms, plain_ms, library_ms,
+                            bytes_moved, flops, FP32_FLOP_PER_S)]
     del protos, coeffs, boxes, out, pflat
 
     for retina in (False, True):
@@ -641,11 +816,14 @@ def main() -> int:
     # -- 6b. memory_readout at the tracker's shapes: ring full, 8 long-term slots invalid ----
     No, M, Cv, HW = 4, 12968, 128, 1620
     for Q, dtype, keep in ((8100, torch.float32, True), (1620, torch.float32, False),
-                           (8100, torch.bfloat16, False), (1620, torch.bfloat16, False)):
+                           (8100, torch.bfloat16, True), (1620, torch.bfloat16, False)):
         q, k, v, ok = readout_inputs(Q, M, No, Cv, dtype, 11, device)
         ok[8 * HW:] = False
         out = torch.empty((No, Q, Cv), dtype=dtype, device=device)
-        args, launch = mr.kernel_args(q, k, v, ok, out), mr.kernel_fn()
+        n_split = mr.split_for(Q, M, device)
+        scratch = mr.kernel_scratch(q, v, n_split)
+        # the raw launch: validity pre-pass, readout and (memory split) combine, scratch allocated once
+        args, launch = mr.kernel_args(q, k, v, ok, out, scratch, n_split), mr.kernel_fn()
         ms = cuda_time_ms(lambda: launch(*args), iters=20, warmup=3)
         wrapper = cuda_time_ms(lambda: mr.memory_readout(q, k, v, ok), iters=20, warmup=3)
         plain = cuda_time_ms(lambda: mr.memory_readout_reference(q, k, v, ok), iters=10, warmup=2)
@@ -659,16 +837,22 @@ def main() -> int:
                 f"{float((lib_out.float() - mr.memory_readout(q, k, v, ok).float()).abs().max()):.3g}")
         else:
             what, lib = "the two-matmul dense readout (network.memory_readout_dense)", dense
+        ms2 = cuda_time_ms(lambda: launch(*args), iters=20, warmup=3)     # again, after the others
         n_valid = int(ok.sum())
         esize = q.element_size()
         flops = 2 * Q * n_valid * (64 + No * Cv)
         bytes_moved = esize * (Q * 64 + n_valid * 64 + No * n_valid * Cv + No * Q * Cv) + M
-        log(f"memory_readout Q={Q} M={M} ({n_valid} valid) No={No} Cv={Cv} {str(dtype)[6:]}: kernel {ms:.4f} ms "
-            f"(wrapper {wrapper:.4f}), plain {plain:.4f} ms, dense two-matmul {dense:.4f} ms, "
-            f"yardstick [{what}] {lib:.4f} ms, ({bytes_moved} B, {flops} FLOP) [{smi}]")
+        log(f"memory_readout Q={Q} M={M} ({n_valid} valid) No={No} Cv={Cv} {str(dtype)[6:]} splits={n_split}: "
+            f"kernel {ms:.4f} ms (again {ms2:.4f}; wrapper {wrapper:.4f}), plain {plain:.4f} ms, dense two-matmul "
+            f"{dense:.4f} ms, yardstick [{what}] {lib:.4f} ms, ({bytes_moved} B, {flops} FLOP) [{smi}]")
+        # fp32 goes through the tensor cores as three TF32 products for every fp32 product
+        name, ops, rate = (("memory_readout", 3 * flops, TF32_FLOP_PER_S) if dtype == torch.float32 else
+                           ("memory_readout_bf16", flops, BF16_FLOP_PER_S))
         if keep:
-            kernels.append(kernel_entry("memory_readout", "yolo_puncture_tpu/ops/pallas/mem_attention.py:24",
-                                        launches, max_err, ms, plain, lib, bytes_moved, flops))
+            kernels.append(kernel_entry(name, "memory_readout", "yolo_puncture_tpu/ops/pallas/mem_attention.py:24",
+                                        launches[name], max_err[name], ms, plain, lib, bytes_moved, ops, rate))
+        else:
+            roofline_ms(f"{name}, one frame", bytes_moved, ops, rate)
         del q, k, v, ok, out, lib_out
 
     # -- 6c. decode_tail at the tracker's shapes ------------------------------------------------
@@ -697,25 +881,27 @@ def main() -> int:
             f"plane {wrapper:.4f}), plain {plain:.4f} ms, cuDNN's two packed convolutions alone {lib:.4f} ms, "
             f"({bytes_moved} B, {flops} FLOP) [{smi}]")
         if keep:
-            kernels.append(kernel_entry("decode_tail", "yolo_puncture_tpu/ops/pallas/decode_tail.py:52",
-                                        launches, max_err, ms, plain, lib, bytes_moved, flops))
+            kernels.append(kernel_entry("decode_tail", "decode_tail", "yolo_puncture_tpu/ops/pallas/decode_tail.py:52",
+                                        launches["decode_tail"], max_err["decode_tail"], ms, plain, lib,
+                                        bytes_moved, flops, FP32_FLOP_PER_S))
         del hidden, f8p, f4p, oskip, y8, out, x8, x4
 
-    # -- 6d. one step and one window of the tracker, host clock -----------------------------------
-    for i in range(1, 6):
-        core.step(track_frames[i])                                           # warm-up
+    # -- 6d. one step and one window of the tracker, host clock: fp32, then bf16 ----------------------
     step_frames = [track_frames[6 + (i % 4)] for i in range(10)]
-    counts = (mr.memory_readout.launches, dt.decode_tail.launches)
-    step_times = host_ms(lambda: [core.step(f) for f in step_frames[:5]])
-    per_step = ((mr.memory_readout.launches - counts[0]) / 15, (dt.decode_tail.launches - counts[1]) / 15)
-    counts = (mr.memory_readout.launches, dt.decode_tail.launches)
-    window_times = host_ms(lambda: core.step_batch(step_frames[:5]))
-    per_window = ((mr.memory_readout.launches - counts[0]) / 3, (dt.decode_tail.launches - counts[1]) / 3)
-    log(f"tracker 480x864 No=4: 5 steps {sorted(step_times)[1]:.1f} ms median of 3 ({step_times}), launches per "
-        f"step (memory_readout, decode_tail) {per_step}; one 5-frame window {sorted(window_times)[1]:.1f} ms "
-        f"median of 3 ({window_times}), launches per window {per_window} [{smi}]")
-    stages = tracker_stage_ms(core, step_frames[:5])
-    log(f"tracker stages ms, synchronised: {json.dumps(stages)}")
+    for what, c in (("fp32", core), ("bf16", core16)):
+        for i in range(1, 6):
+            c.step(track_frames[i])                                          # warm-up
+        counts = (mr.memory_readout.launches, dt.decode_tail.launches)
+        step_times = host_ms(lambda: [c.step(f) for f in step_frames[:5]])
+        per_step = ((mr.memory_readout.launches - counts[0]) / 15, (dt.decode_tail.launches - counts[1]) / 15)
+        counts = (mr.memory_readout.launches, dt.decode_tail.launches)
+        window_times = host_ms(lambda: c.step_batch(step_frames[:5]))
+        per_window = ((mr.memory_readout.launches - counts[0]) / 3, (dt.decode_tail.launches - counts[1]) / 3)
+        log(f"tracker {what} 480x864 No=4: 5 steps {sorted(step_times)[1]:.1f} ms median of 3 ({step_times}), "
+            f"launches per step (memory_readout, decode_tail) {per_step}; one 5-frame window "
+            f"{sorted(window_times)[1]:.1f} ms median of 3 ({window_times}), launches per window {per_window} [{smi}]")
+        stages = tracker_stage_ms(c, step_frames[:5])
+        log(f"tracker {what} stages ms, synchronised: {json.dumps(stages)}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-# imported by its own name (pytest puts tests/ on sys.path): a machine may have
-# another distribution's top-level ``tests`` package installed, which would shadow
-# ``tests.torch_parity``
+# torch_parity is imported by its own name (pytest puts tests/ on sys.path): a machine
+# may have another distribution's top-level ``tests`` package installed, which would
+# shadow ``tests.torch_parity``.  chip_smoke.py lies at the repository's root, where
+# ``python -m pytest`` is run from; it holds the readout's cases, inputs and limits.
+from chip_smoke import READOUT_CASES, READOUT_FP64_CASES, check_readout_case, check_readout_fp64_case
 from torch_parity import assert_masks_match, proto_decode_inputs
 from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail, decode_tail_reference
-from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout, memory_readout_reference
+from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
 from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode, proto_decode_reference
 
 
@@ -86,36 +88,28 @@ def test_predict_on_the_card_matches_the_cpu(cuda, retina):
             assert (g.masks.data[i] == r.masks.data[j]).mean() >= 0.999
 
 
-# (Q, M, No, Cv, valid): the serving window and frame, ragged edges, no valid
-# element, and the first valid element in the last tile
-READOUT_CASES = [(8100, 12968, 4, 128, "random"), (1620, 12968, 4, 128, "all"), (52, 300, 3, 128, "random"),
-                 (100, 333, 2, 128, "none"), (70, 333, 2, 128, "last")]
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", READOUT_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_memory_readout_kernel_matches_plain_version(cuda, case, dtype, scale):
+    """The cases, the inputs and the limits are ``chip_smoke.py``'s: fp32 within 2e-4
+    (fp32 sums in another order), bf16 within ``readout_bf16_limit`` at every element,
+    with a softmax spread over the memory (scale 1) and one carried by a few elements
+    (scale 2)."""
+    before = memory_readout.launches
+    check_readout_case(case, dtype, scale, cuda, seed=3)
+    assert memory_readout.launches == before + 1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", READOUT_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_memory_readout_kernel_matches_plain_version(cuda, case, dtype):
-    Q, M, No, Cv, valid = case
-    rng = np.random.default_rng(3)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
-               for s in ((Q, 64), (M, 64), (No, M, Cv)))
-    ok = {"all": np.ones(M, bool), "none": np.zeros(M, bool), "random": rng.random(M) < 0.5,
-          "last": np.arange(M) >= M - 3}[valid]
-    ok = torch.from_numpy(ok).to(cuda)
+@pytest.mark.parametrize("case", READOUT_FP64_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_memory_readout_fp32_kernel_is_fp32_class_on_large_logits(cuda, case):
+    """Against a float64 readout with logits of 30 and more: a kernel that dropped the
+    low parts of its TF32 split (one TF32 product) would be a hundred times off."""
     before = memory_readout.launches
-    got = memory_readout(q, k, v, ok)
-    torch.cuda.synchronize()
+    check_readout_fp64_case(case, cuda)
     assert memory_readout.launches == before + 1
-    ref = memory_readout_reference(q, k, v, ok)
-    assert got.dtype == dtype and tuple(got.shape) == (No, Q, Cv) and bool(torch.isfinite(got).all())
-    if valid == "none":
-        assert float(got.float().abs().max()) == 0.0
-    diff = (got.float() - ref.float()).abs()
-    if dtype == torch.float32:
-        assert float(diff.max()) <= 2e-4                      # fp32 sums in another order
-    else:
-        assert bool((diff <= 2.0 ** -7 * ref.float().abs().clamp_min(1.0)).all())   # one bf16 ulp
 
 
 @pytest.mark.gpu
@@ -132,6 +126,8 @@ def test_memory_readout_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         memory_readout(q, k, v.transpose(0, 1).contiguous().transpose(0, 1), ok)
     with pytest.raises(ValueError):
         memory_readout(torch.zeros(4, 32, device=cuda), torch.zeros(6, 32, device=cuda), v, ok)
+    with pytest.raises(ValueError):                           # a view that is not 16-byte aligned
+        memory_readout(torch.zeros(4 * 64 + 1, device=cuda)[1:].view(4, 64), k, v, ok)
 
 
 @pytest.mark.gpu

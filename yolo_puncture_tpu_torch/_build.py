@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into its own shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu -ldl
 
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  Builds land in
@@ -30,6 +30,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+NVCC_LIBS = ["-ldl"]  # after the source: the readout looks up libcuda's tensor-map encoder with dlsym
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -52,7 +53,7 @@ def sources() -> List[str]:
 
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + NVCC_LIBS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -65,7 +66,7 @@ class _Build:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.tmp = self.out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(self.tmp), str(CSRC / f"{name}.cu")]
+               "-o", str(self.tmp), str(CSRC / f"{name}.cu"), *NVCC_LIBS]
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish(self) -> None:
