@@ -7,10 +7,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   1. build every CUDA kernel from ``yolo_puncture_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card:
-     ``proto_decode``, ``memory_readout`` (fp32 and bf16, ragged shapes, odd
+     ``proto_decode`` (soft and binary, pixel counts that leave the 4-pixel
+     vectors and the blocks ragged, 1 to 70 instances, box edges on vector
+     boundaries), ``memory_readout`` (fp32 and bf16, ragged shapes, odd
      object counts, the memory split over blocks, a softmax spread over the
      memory and one carried by a few elements; fp32 also against a float64
-     readout on large logits) and ``decode_tail``;
+     readout on large logits) and ``decode_tail`` (fp32 and bf16, the window,
+     one frame and shapes down to a single pixel);
   3. drive the main paths with every kernel's launch count set to 0 just before
      and read just after, each kernel of a path must have run:
      ``YOLO("yolo10s-seg").predict`` at imgsz 640 on four seeded 720×1280 frames
@@ -117,6 +120,31 @@ def cuda_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(make, launches: int = 20, replays: int = 10) -> float:
+    """Mean device time of ``fn = make()`` replayed from a CUDA graph of ``launches``
+    calls: no host launch cost and no gap between kernels, which at 10 us a kernel
+    are a third of what back-to-back launches from Python measure.  ``make`` is
+    called on the capturing stream, so a raw launch binds that stream."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn = make()
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(replays):
+            graph.replay()
+        end.record(stream)
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
 def predict_stage_ms(det, frames, **kw) -> dict:
     """One ``det.predict(frames, **kw)`` with the predictor's stages timed on the
     host clock, the device synchronised before and after each stage (so the
@@ -159,7 +187,10 @@ def predict_stage_ms(det, frames, **kw) -> dict:
     return ms
 
 
-def proto_decode_inputs(B, N, Hp, Wp, nm, seed, device):
+def proto_decode_inputs(B, N, Hp, Wp, nm, seed, device, snap=0):
+    """Seeded protos (B, nm, Hp, Wp), coeffs (B, N, nm) and boxes (B, N, 4).  Every
+    fourth box has integer edges (the half-open test); ``snap`` > 0 puts every
+    edge on a multiple of it, the boundaries of the kernel's pixel vectors."""
     rng = np.random.default_rng(seed)
     protos = rng.standard_normal((B, nm, Hp, Wp)).astype(np.float32)
     coeffs = (0.5 * rng.standard_normal((B, N, nm))).astype(np.float32)
@@ -167,44 +198,68 @@ def proto_decode_inputs(B, N, Hp, Wp, nm, seed, device):
     y1 = rng.uniform(-5, Hp * 0.6, (B, N))
     boxes = np.stack([x1, y1, x1 + rng.uniform(1, Wp, (B, N)), y1 + rng.uniform(1, Hp, (B, N))], -1)
     boxes[:, ::4] = np.round(boxes[:, ::4])  # integer edges exercise the half-open test
+    if snap:
+        boxes = np.round(boxes / snap) * snap
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)  # noqa: E731
     return to(protos), to(coeffs), to(boxes)
 
 
-def check_proto_decode(device) -> float:
-    """Kernel vs plain version on the card; returns the largest soft difference."""
+# (B, N, Hp, Wp, threshold, crop, box edges snapped to multiples of)
+PROTO_CASES = [
+    (4, 32, 160, 160, None, True, 0),     # the detector's shape
+    (4, 32, 160, 160, 0.5, True, 0),
+    (4, 32, 160, 160, None, False, 0),
+    (4, 32, 160, 160, 0.5, False, 0),
+    (4, 70, 160, 160, None, True, 0),     # unsplit: three shared-memory chunks of instances, the last ragged
+    (1, 32, 160, 160, None, True, 4),     # one frame: the instances split over blocks; edges on vector boundaries
+    (1, 32, 160, 160, 0.3, True, 4),      # a threshold whose logit is not 0
+    (3, 37, 100, 168, None, True, 0),
+    (3, 37, 100, 168, 0.5, True, 0),
+    (2, 1, 96, 168, None, True, 0),       # a non-square imgsz, one instance
+    (2, 33, 96, 168, 0.5, True, 4),       # an odd count shared out over two blocks
+    (2, 65, 96, 168, None, True, 0),
+    (2, 65, 96, 168, 0.7, False, 0),
+    (2, 70, 33, 45, None, True, 0),       # P = 1485 is odd: element-wise loads and stores, a ragged last vector
+    (2, 70, 33, 45, 0.5, True, 0),
+    (3, 9, 25, 30, None, True, 0),        # P = 750 = 4 * 187 + 2
+    (3, 9, 25, 30, 0.5, False, 0),
+    (2, 5, 16, 20, 0.0, True, 0),         # thresholds outside (0, 1) keep the sigmoid
+    (2, 5, 16, 20, 1.0, False, 0),
+]
+
+
+def check_proto_decode_case(case, device, seed=100) -> float:
+    """One case of PROTO_CASES on the card, kernel against plain version: soft masks
+    within SOFT_ATOL, binary masks equal outside THRESH_BAND around the threshold.
+    Raises where they disagree; returns the largest soft difference (0 for binary)."""
     from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode, proto_decode_reference
 
-    worst = 0.0
-    cases = [  # (B, N, Hp, Wp, threshold, crop)
-        (4, 32, 160, 160, None, True),
-        (4, 32, 160, 160, 0.5, True),
-        (4, 32, 160, 160, None, False),
-        (4, 32, 160, 160, 0.5, False),
-        (3, 37, 100, 168, None, True),
-        (3, 37, 100, 168, 0.5, True),
-        (2, 70, 33, 45, None, True),  # N > one shared-memory chunk, P not a multiple of 256
-    ]
-    for i, (B, N, Hp, Wp, thr, crop) in enumerate(cases):
-        protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, 32, 100 + i, device)
-        got = proto_decode(protos, coeffs, boxes, thr, crop)
-        ref = proto_decode_reference(protos, coeffs, boxes, thr, crop)
-        torch.cuda.synchronize()
-        if thr is None:
-            err = float((got - ref).abs().max())
-            worst = max(worst, err)
-            log(f"proto_decode B={B} N={N} {Hp}x{Wp} soft crop={crop}: max abs diff {err:.3g}")
-            if not err <= SOFT_ATOL:
-                raise AssertionError(f"soft masks differ by {err} > {SOFT_ATOL}")
-        else:
-            soft = proto_decode_reference(protos, coeffs, boxes, None, crop)
-            bad = (got != ref) & ((soft - thr).abs() > THRESH_BAND)
-            n_diff, n_bad = int((got != ref).sum()), int(bad.sum())
-            log(f"proto_decode B={B} N={N} {Hp}x{Wp} thr={thr} crop={crop}: "
-                f"{n_diff} binary pixels differ, {n_bad} outside the ±{THRESH_BAND} band")
-            if n_bad:
-                raise AssertionError(f"{n_bad} binary pixels differ away from the threshold")
-    return worst
+    B, N, Hp, Wp, thr, crop, snap = case
+    protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, 32, seed, device, snap)
+    got = proto_decode(protos, coeffs, boxes, thr, crop)
+    ref = proto_decode_reference(protos, coeffs, boxes, thr, crop)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or tuple(got.shape) != (B, N, Hp, Wp):
+        raise AssertionError(f"proto_decode gave {got.dtype} {tuple(got.shape)}")
+    if thr is None:
+        err = float((got - ref).abs().max())
+        log(f"proto_decode B={B} N={N} {Hp}x{Wp} soft crop={crop}: max abs diff {err:.3g}")
+        if not err <= SOFT_ATOL:
+            raise AssertionError(f"soft masks differ by {err} > {SOFT_ATOL}")
+        return err
+    soft = proto_decode_reference(protos, coeffs, boxes, None, crop)
+    bad = (got != ref) & ((soft - thr).abs() > THRESH_BAND)
+    n_diff, n_bad = int((got != ref).sum()), int(bad.sum())
+    log(f"proto_decode B={B} N={N} {Hp}x{Wp} thr={thr} crop={crop}: "
+        f"{n_diff} binary pixels differ, {n_bad} outside the ±{THRESH_BAND} band")
+    if n_bad or not set(torch.unique(got).tolist()) <= {0.0, 1.0}:
+        raise AssertionError(f"{n_bad} binary pixels differ away from the threshold")
+    return 0.0
+
+
+def check_proto_decode(device) -> float:
+    """Kernel vs plain version on the card; returns the largest soft difference."""
+    return max(check_proto_decode_case(case, device, 100 + i) for i, case in enumerate(PROTO_CASES))
 
 
 def seeded_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -436,29 +491,44 @@ def tail_inputs(N, No, H16, W16, dtype, seed, device):
             to(0.5 * rng.standard_normal((N, 4 * H16, 4 * W16, 64))))
 
 
-def check_decode_tail(net, device) -> float:
-    """Kernel vs plain version (the packed algebra through cuDNN, TF32 off) on the
-    card, with the needle checkpoint's decoder; returns the largest fp32 difference."""
+# (N, No, H16, W16): the window, one frame, then shapes that leave the kernel's 32 x 8
+# pixel tiles ragged in both stages, down to a single pixel
+TAIL_CASES = [(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7), (3, 1, 1, 1), (2, 1, 7, 9), (1, 3, 17, 33)]
+TAIL_TOL = {torch.float32: FP32_TOL, torch.bfloat16: TAIL_BF16_TOL}
+
+
+def check_decode_tail_case(params, case, device, seed=300) -> float:
+    """One case of TAIL_CASES on the card in the type ``params`` were prepared
+    for, kernel against plain version (the packed algebra through cuDNN, TF32
+    off), within TAIL_TOL.  Raises where they disagree; returns the largest
+    absolute difference."""
     from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail, decode_tail_reference
 
-    worst = 0.0
-    for i, (N, No, H16, W16) in enumerate([(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7)]):
-        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, TAIL_BF16_TOL)):
-            params = net.decoder.tail_params(dtype)
-            hidden, f8p, f4p = tail_inputs(N, No, H16, W16, dtype, 300 + i, device)
-            got = decode_tail(params, hidden, f8p, f4p)
-            ref = decode_tail_reference(params, hidden, f8p, f4p)
-            torch.cuda.synchronize()
-            if got.dtype != torch.float32 or tuple(got.shape) != (N, No, 4 * H16, 4 * W16) \
-                    or not torch.isfinite(got).all():
-                raise AssertionError(f"decode_tail gave {got.dtype} {tuple(got.shape)}")
-            err = float((got - ref).abs().max())
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            log(f"decode_tail N={N} No={No} {H16}x{W16} {str(dtype)[6:]}: max abs diff {err:.3g} "
-                f"(tol {tol:.3g}, logits up to {float(ref.abs().max()):.3g})")
-            if not err <= tol:
-                raise AssertionError(f"decode_tail differs from its plain version by {err} > {tol}")
+    N, No, H16, W16 = case
+    dtype, tol = params.dtype, TAIL_TOL[params.dtype]
+    hidden, f8p, f4p = tail_inputs(N, No, H16, W16, dtype, seed, device)
+    got = decode_tail(params, hidden, f8p, f4p)
+    ref = decode_tail_reference(params, hidden, f8p, f4p)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or tuple(got.shape) != (N, No, 4 * H16, 4 * W16) \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"decode_tail gave {got.dtype} {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    log(f"decode_tail N={N} No={No} {H16}x{W16} {str(dtype)[6:]}: max abs diff {err:.3g} "
+        f"(tol {tol:.3g}, logits up to {float(ref.abs().max()):.3g})")
+    if not err <= tol:
+        raise AssertionError(f"decode_tail differs from its plain version by {err} > {tol}")
+    return err
+
+
+def check_decode_tail(net, device) -> dict:
+    """Kernel vs plain version on the card at every case, with the needle
+    checkpoint's decoder; returns the largest difference in fp32 and in bf16."""
+    worst = {}
+    for dtype in TAIL_TOL:
+        params = net.decoder.tail_params(dtype)
+        worst[dtype] = max(check_decode_tail_case(params, case, device, 300 + i)
+                           for i, case in enumerate(TAIL_CASES))
     return worst
 
 
@@ -680,10 +750,12 @@ def main() -> int:
     # -- 2. kernels against their plain versions -------------------------------
     net = needle_network(device)
     readout_err = check_memory_readout(device)
+    tail_err = check_decode_tail(net, device)
     max_err = {"proto_decode": check_proto_decode(device),
                "memory_readout": readout_err[torch.float32],
                "memory_readout_bf16": readout_err[torch.bfloat16],
-               "decode_tail": check_decode_tail(net, device)}
+               "decode_tail": tail_err[torch.float32],
+               "decode_tail_bf16": tail_err[torch.bfloat16]}
 
     # -- 3a. main path of the detector ----------------------------------------------
     n_frames, h0, w0, imgsz, conf = 4, 720, 1280, 640, 0.018
@@ -726,14 +798,15 @@ def main() -> int:
     probs16 = drive_tracker(core16, track_frames, track_masks, upto_first_window=True)
     torch.cuda.synchronize()
     launches["memory_readout_bf16"] = mr.memory_readout.launches
+    launches["decode_tail_bf16"] = dt.decode_tail.launches
     check_tracker_probs(probs16, 11, core16)
     prob_err16 = float(np.abs(probs16 - probs[:11]).max())
     id_agree16 = float((probs16.argmax(1) == probs[:11].argmax(1)).mean())
     log(f"tracker in bf16 vs fp32 on the card, 11 frames (incorporate, 5 steps, one window): memory_readout launched "
-        f"{launches['memory_readout_bf16']} times, decode_tail {dt.decode_tail.launches}; max abs prob diff "
+        f"{launches['memory_readout_bf16']} times, decode_tail {launches['decode_tail_bf16']}; max abs prob diff "
         f"{prob_err16:.3g} (tol {TRACK_BF16_PROB_TOL}), id maps equal {id_agree16:.6f} (at least "
         f"{TRACK_BF16_ID_AGREE}), IoU {bar_iou(probs16, track_masks, core16.image_size)}")
-    if launches["memory_readout_bf16"] <= 0 or dt.decode_tail.launches <= 0:
+    if launches["memory_readout_bf16"] <= 0 or launches["decode_tail_bf16"] <= 0:
         raise AssertionError("the bf16 tracker did not launch both of its kernels")
     if not (prob_err16 <= TRACK_BF16_PROB_TOL and id_agree16 >= TRACK_BF16_ID_AGREE):
         raise AssertionError("the bf16 tracker disagrees with the fp32 tracker")
@@ -776,31 +849,48 @@ def main() -> int:
 
     # -- 6a. proto_decode at the detector's shapes -------------------------------------------
     B, N, Hp, Wp, nm = n_frames, det.max_masks, imgsz // 4, imgsz // 4, 32
-    protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, nm, 7, device)
-    out = torch.empty((B, N, Hp, Wp), dtype=torch.float32, device=device)
-    args = kernel_args(protos, coeffs, boxes, out, None, True)
     launch = kernel_fn()
-    wrapper_ms = cuda_time_ms(lambda: proto_decode(protos, coeffs, boxes, None, True), iters=200)
-    pflat = protos.reshape(B, nm, Hp * Wp)
-    # the bare launch (device time), its plain version and the product alone through cuBLAS, in turns
-    times = interleaved_times_ms({"kernel": lambda: launch(*args),
-                                  "plain": lambda: proto_decode_reference(protos, coeffs, boxes, None, True),
-                                  "matmul": lambda: torch.matmul(coeffs, pflat)})
-    kernel_ms, plain_ms, library_ms = (times[n][2] for n in ("kernel", "plain", "matmul"))
-    P = Hp * Wp
-    bytes_moved = 4 * (B * nm * P + B * N * nm + B * N * 4 + B * N * P)
-    flops = 2 * B * N * P * nm
-    spread = "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in times.items())
-    tk, tm = times["kernel"], times["matmul"]
-    order = ("every kernel repeat is below every matmul repeat" if tk[-1] < tm[0] else
-             "every matmul repeat is below every kernel repeat" if tm[-1] < tk[0] else "the repeats overlap")
-    log(f"proto_decode B={B} N={N} {Hp}x{Wp}, ms over 5 repeats of 200 launches: {spread}; through the Python "
-        f"wrapper {wrapper_ms:.5f}; the {'kernel' if kernel_ms < library_ms else 'matmul'} is faster by "
-        f"{abs(library_ms - kernel_ms) / max(kernel_ms, library_ms) * 100:.1f} % at the median, {order} "
-        f"({bytes_moved} B, {flops} FLOP) [{smi}]")
-    kernels = [kernel_entry("proto_decode", "proto_decode", "yolo_puncture_tpu/ops/pallas/proto_decode.py:23",
-                            launches["proto_decode"], max_err["proto_decode"], kernel_ms, plain_ms, library_ms,
-                            bytes_moved, flops, FP32_FLOP_PER_S)]
+    # the batch; one frame, which is also what the predictor launches for a frame with more
+    # than max_masks detections (predictor.py _overflow: B 1, N max_masks); eight frames
+    for Bt in (B, 1, 8):
+        protos, coeffs, boxes = proto_decode_inputs(Bt, N, Hp, Wp, nm, 7, device)
+        out = torch.empty((Bt, N, Hp, Wp), dtype=torch.float32, device=device)
+        args = kernel_args(protos, coeffs, boxes, out, None, True)
+        pflat = protos.reshape(Bt, nm, Hp * Wp)
+        fns = {"kernel": lambda: launch(*args),
+               "plain": lambda: proto_decode_reference(protos, coeffs, boxes, None, True),
+               "matmul": lambda: torch.matmul(coeffs, pflat)}
+        # the bare launch (device time), its plain version and the product alone through cuBLAS, in turns
+        times = interleaved_times_ms(fns)
+        def raw(threshold):
+            a = kernel_args(protos, coeffs, boxes, out, threshold, True)   # binds the current stream
+            return lambda: launch(*a)
+
+        makers = {"kernel": lambda: raw(None), "matmul": lambda: fns["matmul"],
+                  "kernel, binary by the logit": lambda: raw(0.5)}
+        graph = {n: sorted(graph_time_ms(make) for _ in range(5)) for n, make in makers.items()}
+        spread = "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in times.items())
+        gspread = "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in graph.items())
+        tk, tm = times["kernel"], times["matmul"]
+        order = ("every kernel repeat is below every matmul repeat" if tk[-1] < tm[0] else
+                 "every matmul repeat is below every kernel repeat" if tm[-1] < tk[0] else "the repeats overlap")
+        gk, gm = graph["kernel"], graph["matmul"]
+        gorder = ("every kernel repeat is below every matmul repeat" if gk[-1] < gm[0] else
+                  "every matmul repeat is below every kernel repeat" if gm[-1] < gk[0] else "the repeats overlap")
+        P = Hp * Wp
+        bytes_moved = 4 * (Bt * nm * P + Bt * N * nm + Bt * N * 4 + Bt * N * P)
+        flops = 2 * Bt * N * P * nm
+        log(f"proto_decode B={Bt} N={N} {Hp}x{Wp}, ms over 5 repeats of 200 launches from Python: {spread}; {order}. "
+            f"Replayed from a CUDA graph of 20 (5 repeats of 10 replays): {gspread}; {gorder} "
+            f"({bytes_moved} B, {flops} FLOP) [{smi}]")
+        if Bt == B:
+            wrapper_ms = cuda_time_ms(lambda: proto_decode(protos, coeffs, boxes, None, True), iters=200)
+            log(f"proto_decode through the Python wrapper {wrapper_ms:.5f} ms")
+            kernels = [kernel_entry("proto_decode", "proto_decode", "yolo_puncture_tpu/ops/pallas/proto_decode.py:23",
+                                    launches["proto_decode"], max_err["proto_decode"], times["kernel"][2],
+                                    times["plain"][2], times["matmul"][2], bytes_moved, flops, FP32_FLOP_PER_S)]
+        else:
+            roofline_ms(f"proto_decode B={Bt}", bytes_moved, flops, FP32_FLOP_PER_S)
     del protos, coeffs, boxes, out, pflat
 
     for retina in (False, True):
@@ -858,7 +948,7 @@ def main() -> int:
     # -- 6c. decode_tail at the tracker's shapes ------------------------------------------------
     H16, W16 = 30, 54
     for Nf, dtype, keep in ((5, torch.float32, True), (1, torch.float32, False),
-                            (5, torch.bfloat16, False), (1, torch.bfloat16, False)):
+                            (5, torch.bfloat16, True), (1, torch.bfloat16, False)):
         params = net.decoder.tail_params(dtype)
         hidden, f8p, f4p = tail_inputs(Nf, 4, H16, W16, dtype, 13, device)
         oskip = dt.skip_plane(params, f4p)
@@ -868,22 +958,29 @@ def main() -> int:
         ms = cuda_time_ms(lambda: launch(*args), iters=20, warmup=3)       # both stages, without the skip plane
         wrapper = cuda_time_ms(lambda: dt.decode_tail(params, hidden, f8p, f4p), iters=20, warmup=3)
         plain = cuda_time_ms(lambda: dt.decode_tail_reference(params, hidden, f8p, f4p), iters=10, warmup=2)
-        # yardstick: cuDNN's two packed convolutions alone (fp32, TF32 off), no epilogues
-        x8 = hidden.float().reshape(Nf * 4, H16, W16, 128).permute(0, 3, 1, 2).contiguous()
-        x4 = y8.float().permute(0, 3, 1, 2).contiguous()
-        w8, w4 = params.w8.permute(3, 2, 0, 1).contiguous(), params.w4.permute(3, 2, 0, 1).contiguous()
+        # yardstick: cuDNN's two packed convolutions alone in the activation type (fp32 with TF32 off), no epilogues
+        x8 = hidden.reshape(Nf * 4, H16, W16, 128).permute(0, 3, 1, 2).contiguous()
+        x4 = y8.permute(0, 3, 1, 2).contiguous()
+        w8 = params.w8.permute(3, 2, 0, 1).contiguous().to(dtype)
+        w4 = params.w4.permute(3, 2, 0, 1).contiguous().to(dtype)
         lib = cuda_time_ms(lambda: (F.conv2d(x8, w8, padding=1), F.conv2d(x4, w4, padding=1)), iters=10, warmup=2)
+        ms2 = cuda_time_ms(lambda: launch(*args), iters=20, warmup=3)      # again, after the others
         cells, esize = Nf * 4, hidden.element_size()
         flops = 2 * cells * 4 * 256 * (H16 * W16 * 128 + 4 * H16 * W16 * 64) + 2 * cells * 16 * H16 * W16 * 64
         bytes_moved = (esize * (hidden.numel() + f8p.numel() + f4p.numel()) + 4 * out.numel()
-                       + 4 * (params.w8.numel() + params.w4.numel() + 2 * params.a8.numel() + 65))
-        log(f"decode_tail N={Nf} No=4 {H16}x{W16} {str(dtype)[6:]}: kernel {ms:.4f} ms (wrapper with the skip "
-            f"plane {wrapper:.4f}), plain {plain:.4f} ms, cuDNN's two packed convolutions alone {lib:.4f} ms, "
+                       + params.t8.numel() * params.t8.element_size() + params.t4.numel() * params.t4.element_size()
+                       + 4 * (2 * params.a8.numel() + 65))
+        log(f"decode_tail N={Nf} No=4 {H16}x{W16} {str(dtype)[6:]}: kernel {ms:.4f} ms (again {ms2:.4f}; wrapper with "
+            f"the skip plane {wrapper:.4f}), plain {plain:.4f} ms, cuDNN's two packed convolutions alone {lib:.4f} ms, "
             f"({bytes_moved} B, {flops} FLOP) [{smi}]")
+        # fp32 goes through the tensor cores as three TF32 products for every fp32 product
+        name, ops, rate = (("decode_tail", 3 * flops, TF32_FLOP_PER_S) if dtype == torch.float32 else
+                           ("decode_tail_bf16", flops, BF16_FLOP_PER_S))
         if keep:
-            kernels.append(kernel_entry("decode_tail", "decode_tail", "yolo_puncture_tpu/ops/pallas/decode_tail.py:52",
-                                        launches["decode_tail"], max_err["decode_tail"], ms, plain, lib,
-                                        bytes_moved, flops, FP32_FLOP_PER_S))
+            kernels.append(kernel_entry(name, "decode_tail", "yolo_puncture_tpu/ops/pallas/decode_tail.py:52",
+                                        launches[name], max_err[name], ms, plain, lib, bytes_moved, ops, rate))
+        else:
+            roofline_ms(f"{name}, one frame", bytes_moved, ops, rate)
         del hidden, f8p, f4p, oskip, y8, out, x8, x4
 
     # -- 6d. one step and one window of the tracker, host clock: fp32, then bf16 ----------------------

@@ -117,3 +117,126 @@ def test_wrapper_checks_shapes_and_types(setup):
         decode_tail(params, h.bfloat16(), f8.bfloat16(), f4)
     dec = net.decoder
     assert pack_decode_tail_params(dec.dec8, dec.dec4, dec.out).w4.shape == (3, 3, 64, 256)
+
+
+# -- what the host prepares for the tensor-core kernel --------------------------------------------
+
+from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt  # noqa: E402
+
+
+def unpack_weight_tiles(tiles: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``wgmma_weight_tiles`` up to the planes: (4, chunks, 4, planes,
+    64, KC) → (planes, 4 groups, 4 taps, Cin, 64) in the channels' own order."""
+    t = dt._swizzle_128(tiles)
+    g, chunks, taps, planes, n, kc = t.shape
+    k_inv = torch.argsort(dt.tile_k_order(tiles.dtype))
+    n_inv = torch.argsort(dt.tile_n_order())
+    t = t[..., n_inv, :][..., k_inv]                      # rows and slots back in channel order
+    return t.permute(3, 0, 2, 1, 5, 4).reshape(planes, g, taps, chunks * kc, n)
+
+
+def _tf32_bits_clear(x: torch.Tensor) -> bool:
+    """At most 10 explicit mantissa bits: the low 13 of the fp32 mantissa are 0."""
+    return bool(((x.contiguous().view(torch.int32) & 0x1FFF) == 0).all())
+
+
+@pytest.mark.parametrize("which", ["w8", "w4"])
+def test_tf32_planes_reassemble_exactly(setup, which):
+    """hi + lo is the fp32 weight bit for bit, hi is a TF32 number, lo is what is left."""
+    _, net, *_ = setup
+    w = getattr(net.decoder.tail_params(torch.float32), which)
+    hi, lo = dt.split_tf32(w)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert torch.equal(hi + lo, w)
+    assert _tf32_bits_clear(hi)
+    assert bool((lo.abs() <= w.abs() * 2.0 ** -11).all())          # half a TF32 ulp, ties away from zero
+    planes = unpack_weight_tiles(getattr(net.decoder.tail_params(torch.float32), "t" + which[1]))
+    assert _tf32_bits_clear(planes[0])
+    assert torch.equal(planes[0] + planes[1], dt.live_taps(w))
+
+
+@pytest.mark.parametrize("which", ["w8", "w4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_tiles_unpack_to_the_live_taps(setup, which, dtype):
+    """The per-(group, tap) tiles, un-swizzled and put back in channel order, are the
+    packed kernel's live taps; the five taps a group drops are exactly zero."""
+    _, net, *_ = setup
+    params = net.decoder.tail_params(dtype)
+    w, tiles = getattr(params, which), getattr(params, "t" + which[1])
+    cin = w.shape[2]
+    kc, planes = (32, 2) if dtype == torch.float32 else (64, 1)
+    assert tiles.dtype == dtype and tiles.is_contiguous()
+    assert tuple(tiles.shape) == (4, cin // kc, 4, planes, 64, kc)
+    assert tiles.shape[-1] * tiles.element_size() == dt.TILE_ROW_BYTES
+    back = unpack_weight_tiles(tiles).float().sum(0)             # (4 groups, 4 taps, Cin, 64)
+    assert torch.equal(back, dt.live_taps(w))
+    rebuilt = torch.zeros_like(w)
+    for g in range(4):
+        for t in range(4):
+            rebuilt[(g >> 1) + (t >> 1), (g & 1) + (t & 1), :, g * 64:(g + 1) * 64] = back[g, t]
+    assert torch.equal(rebuilt, w)                                  # nothing outside the live taps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_orders_give_a_thread_contiguous_fragments(dtype):
+    """k slots: quad lane c's slots of the four k-steps are the channels of the 32
+    bytes it loads, in order.  Rows: its 16 accumulator columns are channels 16c … 16c+15."""
+    k = dt.tile_k_order(dtype)
+    per = 8 if dtype == torch.float32 else 16                       # channels in 32 bytes
+    steps = k.reshape(4, -1)
+    assert sorted(k.tolist()) == list(range(len(k)))
+    for c in range(4):
+        if dtype == torch.float32:                                  # slots c and c + 4 of each k-step
+            mine = torch.stack([steps[:, c], steps[:, c + 4]], 1).reshape(-1)
+        else:                                                       # slots 2c, 2c+1, 2c+8, 2c+9
+            mine = torch.stack([steps[:, 2 * c], steps[:, 2 * c + 1], steps[:, 2 * c + 8], steps[:, 2 * c + 9]],
+                               1).reshape(-1)
+        assert mine.tolist() == list(range(per * c, per * (c + 1)))
+    n = dt.tile_n_order()
+    assert sorted(n.tolist()) == list(range(64))
+    for c in range(4):
+        cols = [8 * j + 2 * c + e for j in range(8) for e in range(2)]
+        assert n[cols].tolist() == list(range(16 * c, 16 * c + 16))
+
+
+def test_swizzle_is_the_128_byte_xor():
+    x = torch.arange(64 * 32, dtype=torch.float32).reshape(64, 32)
+    s = dt._swizzle_128(x)
+    assert torch.equal(dt._swizzle_128(s), x)
+    for n, piece in ((0, 3), (5, 0), (13, 7), (63, 2)):
+        assert torch.equal(s[n, 4 * (piece ^ (n % 8)):4 * (piece ^ (n % 8)) + 4], x[n, 4 * piece:4 * piece + 4])
+
+
+def _tail_on_tf32(params, hidden, f8p, f4p, products: int) -> torch.Tensor:
+    """The fp32 tail with each convolution taken as the tensor cores take it: operands
+    split with ``split_tf32``, the low parts cut to TF32 as the hardware cuts them,
+    ``products`` = 3: lo·hi + hi·lo + hi·hi; 1: hi·hi alone.  Sums in float64."""
+    import torch.nn.functional as F
+
+    def cut(x):
+        return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+    def conv(x, w):
+        (xh, xl), (wh, wl) = dt.split_tf32(x), dt.split_tf32(w)
+        pairs = [(xh, wh)] if products == 1 else [(cut(xl), wh), (xh, cut(wl)), (xh, wh)]
+        y = sum(F.conv2d(a.double().permute(0, 3, 1, 2), b.double().permute(3, 2, 0, 1), padding=1) for a, b in pairs)
+        return y.permute(0, 2, 3, 1).float()
+
+    N, No, H16, W16, Cin = hidden.shape
+    x = hidden.reshape(N * No, H16, W16, Cin)
+    y8 = dt.depth_to_space2(F.silu(conv(x, params.w8) * params.a8[0] + params.a8[1]), 64)
+    y8 = (y8.reshape(N, No, 2 * H16, 2 * W16, 64) + f8p[:, None]).reshape(N * No, 2 * H16, 2 * W16, 64)
+    y4 = F.silu(conv(y8, params.w4) * params.a4[0] + params.a4[1])
+    o = torch.einsum("bhwgc,c->bhwg", y4.reshape(*y4.shape[:-1], 4, 64), params.w_out)
+    return dt.depth_to_space2(o, 1).reshape(N, No, 4 * H16, 4 * W16) + dt.skip_plane(params, f4p)[:, None]
+
+
+@pytest.mark.parametrize("products", [3, 1])
+def test_three_tf32_products_are_fp32_class_and_one_is_not(setup, products):
+    """Three error-compensated TF32 products stay within the 2e-4 the kernel is held to
+    on the card; a single TF32 product (the low planes dropped) does not."""
+    _, net, hidden, f8p, f4p = setup
+    params = net.decoder.tail_params(torch.float32)
+    h, f8, f4 = torch.from_numpy(hidden), torch.from_numpy(f8p), torch.from_numpy(f4p)
+    err = float((_tail_on_tf32(params, h, f8, f4, products) - decode_tail_reference(params, h, f8, f4)).abs().max())
+    assert (err <= 2e-4) == (products == 3), err

@@ -16,12 +16,20 @@ import torch
 # torch_parity is imported by its own name (pytest puts tests/ on sys.path): a machine
 # may have another distribution's top-level ``tests`` package installed, which would
 # shadow ``tests.torch_parity``.  chip_smoke.py lies at the repository's root, where
-# ``python -m pytest`` is run from; it holds the readout's cases, inputs and limits.
-from chip_smoke import READOUT_CASES, READOUT_FP64_CASES, check_readout_case, check_readout_fp64_case
-from torch_parity import assert_masks_match, proto_decode_inputs
-from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail, decode_tail_reference
+# ``python -m pytest`` is run from; it holds every kernel's cases, inputs and limits.
+from chip_smoke import (
+    PROTO_CASES,
+    READOUT_CASES,
+    READOUT_FP64_CASES,
+    TAIL_CASES,
+    check_decode_tail_case,
+    check_proto_decode_case,
+    check_readout_case,
+    check_readout_fp64_case,
+)
+from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
-from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode, proto_decode_reference
+from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
 
 
 @pytest.fixture
@@ -34,21 +42,15 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4, 32, 160, 160), (3, 37, 100, 168), (2, 70, 33, 45)])
-@pytest.mark.parametrize("threshold", [None, 0.5])
-@pytest.mark.parametrize("crop", [True, False])
-def test_proto_decode_kernel_matches_plain_version(cuda, shape, threshold, crop):
-    B, N, Hp, Wp = shape
-    protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, seed=7)
-    p = torch.from_numpy(protos).permute(0, 3, 1, 2).contiguous().to(cuda)
-    c, b = torch.from_numpy(coeffs).to(cuda), torch.from_numpy(boxes).to(cuda)
+@pytest.mark.parametrize("case", PROTO_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_proto_decode_kernel_matches_plain_version(cuda, case):
+    """The cases, the inputs and the limits are ``chip_smoke.py``'s: soft masks within
+    1e-6, binary masks equal outside 1e-6 around the threshold; pixel counts that are
+    no multiple of the kernel's 4-pixel vectors or of its blocks, 1 to 70 instances,
+    box edges on vector boundaries, thresholds taken as a logit and as a sigmoid."""
     before = proto_decode.launches
-    got = proto_decode(p, c, b, threshold, crop)
-    torch.cuda.synchronize()
+    check_proto_decode_case(case, cuda, seed=7)
     assert proto_decode.launches == before + 1
-    ref = proto_decode_reference(p, c, b, threshold, crop)
-    soft = proto_decode_reference(p, c, b, None, crop)
-    assert_masks_match(got.cpu().numpy(), ref.cpu().numpy(), soft.cpu().numpy(), threshold)
 
 
 @pytest.mark.gpu
@@ -61,6 +63,21 @@ def test_proto_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         proto_decode(p.transpose(2, 3), c, b)
     with pytest.raises(ValueError):
         proto_decode(torch.zeros(1, 16, 8, 8, device=cuda), torch.zeros(1, 2, 16, device=cuda), b)
+
+
+@pytest.mark.gpu
+def test_proto_decode_takes_a_view_that_is_not_16_byte_aligned(cuda):
+    """Protos that start 4 bytes into an allocation go through the element-wise path."""
+    rng = np.random.default_rng(2)
+    flat = torch.from_numpy(rng.standard_normal(2 * 32 * 16 * 20 + 1).astype(np.float32)).to(cuda)
+    p = flat[1:].view(2, 32, 16, 20)
+    c = torch.from_numpy(rng.standard_normal((2, 3, 32)).astype(np.float32)).to(cuda)
+    b = torch.tensor([[[2.0, 1.0, 15.0, 12.0]] * 3] * 2, device=cuda)
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode_reference
+
+    got = proto_decode(p, c, b)
+    torch.cuda.synchronize()
+    assert float((got - proto_decode_reference(p, c, b)).abs().max()) <= 1e-6
 
 
 @pytest.mark.gpu
@@ -131,31 +148,25 @@ def test_memory_readout_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)])
-def test_decode_tail_kernel_matches_plain_version(cuda, shape, dtype, tol):
+@pytest.mark.parametrize("case", TAIL_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_tail_kernel_matches_plain_version(cuda, case, dtype):
+    """``chip_smoke.py``'s cases and limits (fp32 2e-4, bf16 5e-2) on a seeded decoder
+    with non-trivial BatchNorm statistics: the window, one frame, and shapes that leave
+    the kernel's 32 x 8 pixel tiles ragged in both stages, down to a single pixel."""
     from yolo_puncture_tpu_torch.track.network import MaskDecoder
 
-    N, No, H16, W16 = shape
     torch.manual_seed(0)
     dec = MaskDecoder().to(cuda).eval()
     with torch.no_grad():
-        for bn in (dec.dec8.bn, dec.dec4.bn):               # non-trivial statistics
+        for bn in (dec.dec8.bn, dec.dec4.bn):
             bn.running_mean.normal_(0, 0.1)
             bn.running_var.uniform_(0.5, 1.5)
             bn.weight.normal_(1, 0.1)
             bn.bias.normal_(0, 0.1)
-    params = dec.tail_params(dtype)
-    rng = np.random.default_rng(4)
-    hidden, f8p, f4p = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
-                        for s in ((N, No, H16, W16, 128), (N, 2 * H16, 2 * W16, 64), (N, 4 * H16, 4 * W16, 64)))
     before = decode_tail.launches
-    got = decode_tail(params, hidden, f8p, f4p)
-    torch.cuda.synchronize()
+    check_decode_tail_case(dec.tail_params(dtype), case, cuda, seed=4)
     assert decode_tail.launches == before + 1
-    ref = decode_tail_reference(params, hidden, f8p, f4p)
-    assert got.dtype == torch.float32 and tuple(got.shape) == (N, No, 4 * H16, 4 * W16)
-    assert float((got - ref).abs().max()) <= tol
 
 
 @pytest.mark.gpu

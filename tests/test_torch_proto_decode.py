@@ -72,3 +72,41 @@ def test_wrapper_checks_shapes():
         proto_decode(protos, torch.zeros(1, 3, 16), torch.zeros(1, 3, 4))
     with pytest.raises(ValueError):
         proto_decode(protos, torch.zeros(1, 3, 32), torch.zeros(1, 2, 4))
+
+
+# -- the threshold as a logit: what the kernel compares when 0 < threshold < 1 ---------------------
+
+from tests.torch_parity import PROTO_BAND as THRESH_BAND  # noqa: E402
+from yolo_puncture_tpu_torch.ops.kernels.proto_decode import (  # noqa: E402
+    box_inside,
+    proto_decode_reference,
+    threshold_logit,
+)
+
+
+@pytest.mark.parametrize("threshold", [0.5, 0.3, 0.9, 0.02])
+@pytest.mark.parametrize("crop", [True, False])
+def test_logit_threshold_gives_the_same_binary_masks(threshold, crop):
+    """x > logit(t), with logit(t) from float64 and x the fp32 product, against the
+    plain version's sigmoid(x) > t: equal outside the band around the threshold."""
+    B, N, Hp, Wp = 2, 9, 24, 20
+    protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, seed=11)
+    p = torch.from_numpy(protos).permute(0, 3, 1, 2).contiguous()
+    c, b = torch.from_numpy(coeffs), torch.from_numpy(boxes)
+    level = threshold_logit(threshold)
+    assert level == pytest.approx(np.log(threshold / (1 - threshold)), rel=1e-12, abs=1e-15)
+    x = torch.matmul(c, p.reshape(B, 32, Hp * Wp)).reshape(B, N, Hp, Wp)
+    got = x > np.float32(level)
+    if crop:
+        got &= box_inside(b, Hp, Wp)
+    ref = proto_decode_reference(p, c, b, threshold, crop)
+    soft = proto_decode_reference(p, c, b, None, crop)
+    differ = (got.float() != ref) & ((soft - threshold).abs() > THRESH_BAND)
+    assert int(differ.sum()) == 0
+    assert 0 < int(ref.sum()) < ref.numel()
+
+
+@pytest.mark.parametrize("threshold", [None, 0.0, 1.0, -0.5, 1.5])
+def test_no_logit_outside_the_open_interval(threshold):
+    """There the kernel keeps the sigmoid: its fp32 saturation decides sigmoid(x) > 0 and > 1."""
+    assert threshold_logit(threshold) is None

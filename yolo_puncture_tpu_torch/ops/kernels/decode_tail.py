@@ -19,8 +19,15 @@ rounded to bf16 first and the activations where the TPU kernel rounds them
 The packed weights, the BN affines and the head's weights are prepared once per
 set of weights by ``pack_decode_tail_params`` and handed to every call.  The
 kernel lives in ``csrc/decode_tail.cu``; its header states the bound and the
-design (two stages, space tiled with halos, the zero taps of each parity group
-skipped).  On a CPU tensor the wrapper runs ``decode_tail_reference``; on a
+design: two stages, each an implicit GEMM per parity group on the tensor cores
+(``wgmma``), the zero taps of each group skipped, the activations fed from
+registers out of a halo patch that one TMA load brings, bf16 as stored and fp32
+as three error-compensated TF32 products.  The weights reach the kernel as
+finished shared-memory images, ``wgmma_weight_tiles``: per (parity group, chunk
+of 128 bytes of input channels, live tap, plane) one K-major 64 × 128-byte tile
+with the 128-byte swizzle applied, for fp32 a ``hi`` and a ``lo`` plane
+(``split_tf32``), made here once per set of weights so that no call prepares
+anything.  On a CPU tensor the wrapper runs ``decode_tail_reference``; on a
 CUDA tensor it launches the kernel or raises.
 """
 
@@ -85,6 +92,83 @@ class DecodeTailParams:
     w_out: torch.Tensor  # (Cd,) the 1×1 head
     b_out: torch.Tensor  # (1,) its bias
     dtype: torch.dtype   # the activation type these were rounded for
+    t8: torch.Tensor     # ``wgmma_weight_tiles(w8, dtype)``: what the kernel multiplies by
+    t4: torch.Tensor     # ``wgmma_weight_tiles(w4, dtype)``; both None at widths the kernel is not compiled for
+
+
+TILE_ROW_BYTES = 128  # a weight tile's row: one chunk of input channels, 32 fp32 or 64 bf16
+
+
+def split_tf32(x: torch.Tensor):
+    """fp32 → (hi, lo): hi is x rounded to TF32 (10 explicit mantissa bits, ties
+    away from zero, done on the bits as the kernel does), lo = x − hi, exact in
+    fp32, so hi + lo == x."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def live_taps(W: torch.Tensor) -> torch.Tensor:
+    """Packed kernel (3, 3, Cin, 4·Cd) → (4 groups, 4 taps, Cin, Cd): tap
+    t = 2a + b of parity group g = 2·di + dj is packed row di + a, column dj + b,
+    channels g·Cd … g·Cd + Cd − 1.  The other five taps of a group are zero."""
+    Cd = W.shape[3] // 4
+    return torch.stack([
+        torch.stack([W[(g >> 1) + (t >> 1), (g & 1) + (t & 1), :, g * Cd:(g + 1) * Cd] for t in range(4)])
+        for g in range(4)
+    ])
+
+
+def tile_k_order(dtype: torch.dtype) -> torch.Tensor:
+    """Which input channel of a chunk sits in k slot k′ of a weight tile's row.
+    A thread (quad lane c) loads 32 contiguous bytes of an activation row, and
+    they must be its ``wgmma`` A fragments of the chunk's four k-steps as they
+    stand.  TF32 (k-step s of 8 slots, a thread holds slots c and c + 4):
+    slot j of step s is channel 8·(j % 4) + 2·s + j // 4.  bf16 (k-step of 16
+    slots, a thread holds 2c, 2c + 1, 2c + 8, 2c + 9): slot j of step s is
+    channel 16·((j % 8) // 2) + 4·s + 2·(j // 8) + j % 2."""
+    if dtype == torch.float32:
+        s, j = torch.arange(4)[:, None], torch.arange(8)[None, :]
+        return (8 * (j % 4) + 2 * s + j // 4).reshape(-1)
+    s, j = torch.arange(4)[:, None], torch.arange(16)[None, :]
+    return (16 * ((j % 8) // 2) + 4 * s + 2 * (j // 8) + j % 2).reshape(-1)
+
+
+def tile_n_order() -> torch.Tensor:
+    """Which output channel sits in row n of a weight tile: a thread (quad lane
+    c) holds accumulator columns 8j + 2c + e, and row n = 8j + 2c + e is channel
+    16c + 2j + e, so that the thread owns 16 neighbouring channels of a pixel."""
+    n = torch.arange(64)
+    return 16 * ((n % 8) // 2) + 2 * (n // 8) + n % 2
+
+
+def _swizzle_128(tiles: torch.Tensor) -> torch.Tensor:
+    """(..., 64 rows, row elements): the 16-byte piece p of row n moves to piece
+    p ^ (n % 8), the 128-byte swizzle of TMA and ``wgmma``.  Its own inverse."""
+    *lead, rows, width = tiles.shape
+    per = width // 8
+    pieces = tiles.reshape(*lead, rows, 8, per)
+    src = torch.arange(8)[None, :] ^ (torch.arange(rows)[:, None] % 8)          # (rows, 8)
+    idx = src.reshape(*([1] * len(lead)), rows, 8, 1).expand(*lead, rows, 8, per)
+    return torch.gather(pieces, -2, idx.to(tiles.device)).reshape(*lead, rows, width)
+
+
+def wgmma_weight_tiles(W: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Packed kernel (3, 3, Cin, 4·64) fp32 → the kernel's B operand,
+    (4 groups, Cin / KC chunks, 4 taps, planes, 64, KC) of ``dtype``: KC = 32 and
+    planes (hi, lo) of ``split_tf32`` for fp32, KC = 64 and one plane for bf16;
+    rows in ``tile_n_order``, k slots in ``tile_k_order``, swizzled."""
+    if W.shape[3] != 4 * KERNEL_DEC_DIM:
+        raise ValueError(f"weight tiles are made for {KERNEL_DEC_DIM} output channels a group")
+    kc = TILE_ROW_BYTES // torch.empty((), dtype=dtype).element_size()
+    Cin = W.shape[2]
+    if dtype not in (torch.float32, torch.bfloat16) or Cin % kc:
+        raise ValueError(f"weight tiles need fp32 or bf16 and Cin a multiple of {kc}, got {dtype}, {Cin}")
+    t = live_taps(W.float()).reshape(4, 4, Cin // kc, kc, KERNEL_DEC_DIM)
+    t = t[:, :, :, tile_k_order(dtype).to(W.device)][..., tile_n_order().to(W.device)]  # (g, tap, chunk, k′, n)
+    t = t.permute(0, 2, 1, 4, 3)                                                           # (g, chunk, tap, n, k′)
+    planes = torch.stack(split_tf32(t.contiguous()), dim=3) if dtype == torch.float32 else t.to(dtype)[:, :, :, None]
+    return _swizzle_128(planes).contiguous()
 
 
 def _bn_affine(bn: torch.nn.BatchNorm2d) -> torch.Tensor:
@@ -104,14 +188,20 @@ def pack_decode_tail_params(dec8, dec4, out, dtype: torch.dtype = torch.float32)
     def rounded(t):
         return t.detach().float().to(dtype).float().contiguous().clone()
 
+    w8 = rounded(subpix_up_weights(dec8.conv.weight.float().permute(2, 3, 1, 0)))
+    w4 = rounded(subpix_up_weights(dec4.conv.weight.float().permute(2, 3, 1, 0)))
+    kernel_widths = (w8.shape[2], w4.shape[2]) == (KERNEL_IN_DIM, KERNEL_DEC_DIM) and dtype in (
+        torch.float32, torch.bfloat16)
     return DecodeTailParams(
-        w8=rounded(subpix_up_weights(dec8.conv.weight.float().permute(2, 3, 1, 0))),
+        w8=w8,
         a8=_bn_affine(dec8.bn),
-        w4=rounded(subpix_up_weights(dec4.conv.weight.float().permute(2, 3, 1, 0))),
+        w4=w4,
         a4=_bn_affine(dec4.bn),
         w_out=rounded(out.weight[0, :, 0, 0]),
         b_out=out.bias.detach().float().reshape(1).clone(),
         dtype=dtype,
+        t8=wgmma_weight_tiles(w8, dtype) if kernel_widths else None,
+        t4=wgmma_weight_tiles(w4, dtype) if kernel_widths else None,
     )
 
 
@@ -156,8 +246,8 @@ def kernel_args(params: DecodeTailParams, hidden, f8p, oskip, y8, out):
     """Arguments of ``kernel_fn()`` for checked tensors, on the current stream."""
     N, No, H16, W16, Cin = hidden.shape
     return (
-        hidden.data_ptr(), f8p.data_ptr(), oskip.data_ptr(), params.w8.data_ptr(), params.a8.data_ptr(),
-        params.w4.data_ptr(), params.a4.data_ptr(), params.w_out.data_ptr(), y8.data_ptr(), out.data_ptr(),
+        hidden.data_ptr(), f8p.data_ptr(), oskip.data_ptr(), params.t8.data_ptr(), params.a8.data_ptr(),
+        params.t4.data_ptr(), params.a4.data_ptr(), params.w_out.data_ptr(), y8.data_ptr(), out.data_ptr(),
         N, No, H16, W16, Cin, params.w_out.shape[0], int(hidden.dtype == torch.bfloat16),
         torch.cuda.current_stream(hidden.device).cuda_stream,
     )
@@ -206,8 +296,9 @@ def decode_tail(params: DecodeTailParams, hidden, f8p, f4p) -> torch.Tensor:
         raise ValueError(
             f"decode_tail kernel is compiled for Cin == {KERNEL_IN_DIM}, Cd == {KERNEL_DEC_DIM}, got {Cin}, {Cd}"
         )
-    if N * No > 65535:
-        raise ValueError(f"decode_tail kernel takes at most 65535 (frame, object) cells, got {N * No}")
+    for name, t in (("hidden", hidden), ("f8p", f8p)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_tail kernel takes a 16-byte aligned {name}")
     out = torch.empty((N, No, 4 * H16, 4 * W16), dtype=torch.float32, device=hidden.device)
     if out.numel() == 0:
         return out
