@@ -22,23 +22,31 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      bright bar (``incorporate_detection``, 5× ``step``, ``step_batch`` of 12
      frames, a second ``incorporate_detection``), then the same tracker in bf16
      (``incorporate_detection``, 5× ``step``, one window), held against the fp32
-     run on the card;
+     run on the card; then the speed pipeline ``VideoSpeedPipeline`` (YOLOv10-S
+     seg at 640², EfficientNet-B3 on 380² crops, ``device_batch=8``) over 67
+     seeded 720×1280 frames of a needle whose visible length shrinks after a key
+     frame, ``conf`` between two of the clip's best scores so that some frames
+     are detected and some not (``proto_decode`` once per batch), and two clips
+     through the interleaved batches of ``process_videos``, each against its own
+     run;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
-     first window) and compare;
+     first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
      constructor's defaults and once with a ring of two slots so that
      consolidation fires: this readout returns the attention usage and is plain
      PyTorch, so ``memory_readout``'s count must not move;
   6. time each kernel, its plain version and a PyTorch yardstick with CUDA
-     events, and ``predict``, one ``step`` and one window with a synchronised
-     host clock.
+     events, and ``predict``, one ``step``, one window and the pipeline's
+     ``process_frames`` over the clip (frames per second, its stages) with a
+     synchronised host clock.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on its main path, its error against the plain version, its
 times and its bound; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.  The detector's weights are a seeded
-random init; the tracker's are ``resources/weights/tracker_propagation_needle.msgpack``.
+random init; the tracker's are ``resources/weights/tracker_propagation_needle.msgpack``;
+the classifier's are a seeded random init too.
 """
 
 from __future__ import annotations
@@ -96,6 +104,9 @@ TAIL_BF16_TOL = 5e-2
 # frames through cuDNN's and the CPU's convolutions
 TRACK_PROB_TOL = 5e-3
 TRACK_ID_AGREE = 0.999
+
+# the speed pipeline's clip: 8 full batches of 8 and a ragged one
+PIPE_FRAMES, PIPE_KEY_FRAME = 67, 24
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NEEDLE = os.path.join(ROOT, "resources", "weights", "tracker_propagation_needle.msgpack")
@@ -225,6 +236,7 @@ PROTO_CASES = [
     (3, 9, 25, 30, 0.5, False, 0),
     (2, 5, 16, 20, 0.0, True, 0),         # thresholds outside (0, 1) keep the sigmoid
     (2, 5, 16, 20, 1.0, False, 0),
+    (8, 1, 160, 160, None, False, 0),     # the speed pipeline's launch: the best slot of 8 frames, soft, no crop
 ]
 
 
@@ -561,6 +573,181 @@ def drive_tracker(core, frames, masks, upto_first_window: bool = False):
     return np.stack(probs)
 
 
+def needle_clip(n: int, h: int, w: int, key_frame: int, seed: int):
+    """BGR uint8 frames (n, h, w, 3) of a needle over textured skin, drawn as
+    ``tools/e2e_accuracy_eval.py make_puncture_video`` draws its clips: a bright
+    vertical shaft ending at the skin line, its visible length constant until
+    ``key_frame`` and then shrinking by 1 % of it a frame, with an insertion cue
+    at the entry point from the key frame on.  Returns (frames, the shaft's
+    boxes (n, 4) xyxy, its visible lengths (n,) in pixels)."""
+    rng = np.random.default_rng(seed)
+    skin_y, length0, half_w = int(h * 0.7), h * 0.4, max(w // 100, 2)
+    cx = int(rng.integers(w // 3, 2 * w // 3))
+    base = rng.integers(60, 120, (h, w, 3)).astype(np.int32)
+    base[skin_y:] = (115, 128, 166)
+    frames = np.empty((n, h, w, 3), np.uint8)
+    boxes, lens = np.zeros((n, 4), np.float32), np.zeros(n, np.float32)
+    for t in range(n):
+        img = base + rng.integers(-6, 7, (h, w, 3))
+        vis = length0 * (1.0 - 0.01 * max(t - key_frame, 0))
+        jx = int(rng.integers(-1, 2))
+        x1, x2, y1 = cx - half_w + jx, cx + half_w + jx, int(round(skin_y - vis))
+        img[y1:skin_y, x1:x2] = 235
+        if t >= key_frame:
+            img[skin_y - 3:skin_y + 4, x1 - 4:x2 + 4] = (60, 60, 240)
+        frames[t] = np.clip(img, 0, 255)
+        boxes[t], lens[t] = (x1, y1, x2, skin_y), skin_y - y1
+    return frames, boxes, lens
+
+
+def pipeline_conf(pipe, frames) -> tuple:
+    """A conf between two of the clip's best scores (one device step per batch at
+    conf 0): the middle of the widest gap between neighbours among the sorted
+    scores, leaving at least an eighth of the frames on each side, so that some
+    frames are detected and some are not and no score lies near the threshold.
+    Returns (conf, the gap)."""
+    B = pipe.device_batch
+    best = np.sort(np.concatenate([
+        pipe._step(torch.from_numpy(frames[i:i + B]).to(pipe.detector.device), 0.0)[0]["conf"].cpu().numpy()
+        for i in range(0, len(frames), B)]))
+    lo, hi = max(len(best) // 8, 1) - 1, len(best) - max(len(best) // 8, 1)
+    i = lo + int(np.argmax(np.diff(best)[lo:hi]))
+    return float((best[i] + best[i + 1]) / 2), float(best[i + 1] - best[i])
+
+
+def check_pipeline_output(out, n_frames, h, w) -> dict:
+    """What the speed pipeline returns for a clip: one entry per frame in every
+    list, finite lengths, classes repaired to 0 before the key frame and 1 after
+    it, and the fallback chain (an undetected frame repeats the last detection's
+    box and length, the whole frame before any detection)."""
+    lists = {k: len(getattr(out, k)) for k in ("lens", "smooth_lens", "actual_lens", "classes", "probs", "boxes",
+                                               "detected")}
+    if set(lists.values()) != {n_frames}:
+        raise AssertionError(f"pipeline output lengths {lists}, want {n_frames} each")
+    if not (np.isfinite(out.lens).all() and np.isfinite(out.smooth_lens).all()):
+        raise AssertionError("non-finite lengths")
+    s = out.start_frame
+    if not (0 <= s < n_frames and set(out.classes[:s]) <= {0} and set(out.classes[s + 1:]) <= {1}):
+        raise AssertionError(f"classes not repaired around the key frame {s}: {out.classes}")
+    if not all(0.0 <= p <= 1.0 for p in out.probs):
+        raise AssertionError("probabilities outside [0, 1]")
+    last_box, last_len = (0, 0, w, h), 0.0
+    for box, length, det in zip(out.boxes, out.lens, out.detected):
+        if det:
+            last_box, last_len = box, length
+        elif (box, length) != (last_box, last_len):
+            raise AssertionError(f"fallback chain broken: {box}, {length} after {last_box}, {last_len}")
+    return {"detected": int(sum(out.detected)), "start_frame": s, "end_frame": out.end_frame,
+            "speed_mm_s": out.speed_mm_s, "lens": [round(v, 3) for v in out.lens[::6]]}
+
+
+def same_pipeline_output(got, ref) -> None:
+    """Raise unless two runs of the pipeline over one clip agree: detections,
+    boxes, classes, key frame and end frame equal, lengths within 1e-4 px and
+    probabilities within 1e-5."""
+    equal = all(getattr(got, k) == getattr(ref, k)
+                for k in ("detected", "boxes", "classes", "start_frame", "end_frame"))
+    close = (np.allclose(got.lens, ref.lens, rtol=1e-5, atol=1e-4)
+             and np.allclose(got.probs, ref.probs, rtol=0, atol=1e-5))
+    if not (equal and close):
+        raise AssertionError(f"interleaved and sequential runs differ: {got} against {ref}")
+
+
+# the speed pipeline's device step on the card against its CPU run (one batch, same weights)
+PIPE_BOX_TOL = 0.05       # float boxes, pixels of the original frame
+PIPE_CONF_TOL = 1e-4
+PIPE_MASK_AGREE = 0.999   # share of equal pixels of each frame's mask at letterbox resolution
+PIPE_PROB_TOL = 1e-3      # classifier probability, where both sides cut the crop at the same integer origin
+
+
+def check_pipeline_step(got: dict, ref: dict) -> dict:
+    """One batch of ``VideoSpeedPipeline._step`` on the card (``got``) against the
+    CPU (``ref``), both as numpy: ``valid`` equal, boxes within PIPE_BOX_TOL,
+    scores within PIPE_CONF_TOL, masks PIPE_MASK_AGREE equal, probabilities within
+    PIPE_PROB_TOL where the crop origin is the same.  Raises where they disagree."""
+    if not np.array_equal(got["valid"], ref["valid"]):
+        raise AssertionError(f"valid differs: {got['valid']} against {ref['valid']}")
+    origin = [np.stack([((b[:, 0] + b[:, 2]) / 2).astype(np.int32), ((b[:, 1] + b[:, 3]) / 2).astype(np.int32)], 1)
+              for b in (got["box"], ref["box"])]
+    same = (origin[0] == origin[1]).all(1)
+    stats = {"frames": len(got["valid"]), "valid": int(ref["valid"].sum()),
+             "box_max_abs": float(np.abs(got["box"] - ref["box"]).max()),
+             "conf_max_abs": float(np.abs(got["conf"] - ref["conf"]).max()),
+             "mask_min_agreement": float(min((g == r).mean() for g, r in zip(got["mask_lb"], ref["mask_lb"]))),
+             "same_crop_origin": int(same.sum()),
+             "prob_max_abs": float(np.abs(got["cls_prob"] - ref["cls_prob"])[same].max()) if same.any() else 0.0}
+    if not (stats["box_max_abs"] <= PIPE_BOX_TOL and stats["conf_max_abs"] <= PIPE_CONF_TOL
+            and stats["mask_min_agreement"] >= PIPE_MASK_AGREE and stats["prob_max_abs"] <= PIPE_PROB_TOL
+            and stats["same_crop_origin"] > 0):
+        raise AssertionError(f"the pipeline step on the card disagrees with the CPU: {stats}")
+    return stats
+
+
+def pipeline_step_numpy(pipe, frames_u8, conf: float) -> dict:
+    """``pipe._step`` on one batch of BGR frames, on the pipeline's device, as numpy."""
+    res, _, _ = pipe._step(torch.from_numpy(frames_u8).to(pipe.detector.device), conf)
+    return {k: v.cpu().numpy() for k, v in res.items() if v is not None}
+
+
+def pipeline_stage_ms(pipe, frames, conf: float) -> dict:
+    """One ``process_frames`` over ``frames`` with the device step's stages timed on
+    the host clock, the device synchronised before and after each (so nothing
+    overlaps as it does in an unclocked call), plus the pipeline's own host
+    stages (``StageTimer``): ms summed over the clip.  'submit_rest' is what the
+    submit stage holds besides the clocked device stages: stacking the frames
+    into pinned memory, the upload, the box scaling and the queued copies."""
+    import yolo_puncture_tpu_torch.pipeline.runner as pr
+    from yolo_puncture_tpu_torch.utils.profiling import StageTimer
+
+    ms = dict.fromkeys(("letterbox", "model", "select", "decode", "crops", "classifier"), 0.0)
+
+    def clocked(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[name] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    patched = {"letterbox": "letterbox", "select_detections": "select", "decode_masks": "decode"}
+    saved = {attr: getattr(pr, attr) for attr in patched}
+    model, timer, cls = pipe.detector.model, pipe.timer, pipe.classifier
+    forward, predict = cls._forward, cls.predict
+    in_step = clocked("classifier", forward)
+
+    def predict_unclocked(images):  # the host pass's re-classification stays in its own stage
+        cls._forward = forward
+        try:
+            return predict(images)
+        finally:
+            cls._forward = in_step
+
+    try:
+        for attr, stage in patched.items():
+            setattr(pr, attr, clocked(stage, saved[attr]))
+        pipe.detector.model = clocked("model", model)
+        pipe._crops = clocked("crops", pipe._crops)
+        cls._forward, cls.predict = in_step, predict_unclocked
+        pipe.timer = StageTimer()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.process_frames(list(frames), fps=30.0, conf=conf)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+        host = {k: v["total_s"] * 1e3 for k, v in pipe.timer.summary().items()}
+    finally:
+        for attr, fn in saved.items():
+            setattr(pr, attr, fn)
+        pipe.detector.model, pipe.timer = model, timer
+        del pipe._crops, cls._forward, cls.predict
+    ms["submit_rest"] = host["device_submit"] - sum(ms.values())
+    ms.update({k: v for k, v in host.items() if k != "device_submit"})
+    ms["total"] = total
+    return ms
+
+
 def check_tracker_probs(probs, n_frames, core):
     h, w = core.image_size
     if probs.shape != (n_frames, core.max_objects + 1, h, w) or not np.isfinite(probs).all():
@@ -730,8 +917,11 @@ def main() -> int:
         proto_decode,
         proto_decode_reference,
     )
+    from yolo_puncture_tpu_torch.pipeline import VideoSpeedPipeline
+    from yolo_puncture_tpu_torch.tasks import ClassifierNet
     from yolo_puncture_tpu_torch.track import ObjectInfo, TrackerCore
     from yolo_puncture_tpu_torch.track.network import memory_readout_dense
+    from yolo_puncture_tpu_torch.utils.profiling import StageTimer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -811,6 +1001,38 @@ def main() -> int:
     if not (prob_err16 <= TRACK_BF16_PROB_TOL and id_agree16 >= TRACK_BF16_ID_AGREE):
         raise AssertionError("the bf16 tracker disagrees with the fp32 tracker")
 
+    # -- 3d. main path of the speed pipeline ------------------------------------------------
+    clip, _, _ = needle_clip(PIPE_FRAMES, h0, w0, PIPE_KEY_FRAME, seed=2)
+    pipe = VideoSpeedPipeline(YOLO("yolo10s-seg", nc=1, seed=0), ClassifierNet("efficientnet_b3", seed=0),
+                              device_batch=8, imgsz=imgsz, crop_size=380)
+    pipe_conf, gap = pipeline_conf(pipe, clip)
+    n_batches = -(-PIPE_FRAMES // pipe.device_batch)
+    proto_decode.launches = 0
+    pipe_out = pipe.process_frames(list(clip), fps=30.0, conf=pipe_conf)
+    torch.cuda.synchronize()
+    launches["proto_decode_pipeline"] = proto_decode.launches
+    summary = check_pipeline_output(pipe_out, PIPE_FRAMES, h0, w0)
+    log(f"main path (speed pipeline: {PIPE_FRAMES} frames {h0}x{w0} -> {imgsz}^2, YOLOv10-S seg, EfficientNet-B3 on "
+        f"380^2 crops, device_batch 8, conf {pipe_conf:.6f} in a gap of {gap:.3g} between best scores): proto_decode "
+        f"launched {proto_decode.launches} times for {n_batches} batches; host re-classification of "
+        f"{pipe.timer.counts['host_classify']} clip(s); {json.dumps(summary)}")
+    if proto_decode.launches != n_batches:
+        raise AssertionError(f"the pipeline launched proto_decode {proto_decode.launches} times for {n_batches} batches")
+    if not 0 < summary["detected"] < PIPE_FRAMES or pipe.timer.counts["host_classify"] != 1:
+        raise AssertionError("the clip must have detected and undetected frames, and the host must re-classify")
+    # two clips of one resolution through the interleaved batches, each against its own run
+    clip_b, _, _ = needle_clip(24, h0, w0, 8, seed=3)
+    streams = lambda: [("a", 30.0, (h0, w0), iter(clip[:32])), ("b", 25.0, (h0, w0), iter(clip_b))]  # noqa: E731
+    proto_decode.launches = 0
+    batched = pipe._process_streams(streams(), pipe_conf, 20)
+    interleaved_launches = proto_decode.launches
+    sequential = pipe._process_streams(streams(), pipe_conf, 20, interleave=False)
+    for name in ("a", "b"):
+        same_pipeline_output(batched[name], sequential[name])
+    log(f"interleaved videos a (32 frames) and b (24): proto_decode launched {interleaved_launches} times "
+        f"(7 shared batches); each equals its own run: "
+        f"{json.dumps({n: check_pipeline_output(o, len(o.lens), h0, w0) for n, o in batched.items()})}")
+
     # -- 4. the same calls on the CPU ------------------------------------------------------
     det_cpu = YOLO("yolo10s-seg", nc=1, seed=0, device="cpu")
     for name, res, retina in (("non-retina", res_plain, False), ("retina", res_retina, True)):
@@ -827,6 +1049,19 @@ def main() -> int:
     if not (prob_err <= TRACK_PROB_TOL and id_agree >= TRACK_ID_AGREE):
         raise AssertionError("the tracker on the card disagrees with its CPU run")
     del core_cpu, probs_cpu
+    # the pipeline's device step: the batch of the clip with the most even split of detections
+    t = time.perf_counter()
+    pipe_cpu = VideoSpeedPipeline(YOLO("yolo10s-seg", nc=1, seed=0, device="cpu"),
+                                  ClassifierNet("efficientnet_b3", seed=0, device="cpu"),
+                                  device_batch=8, imgsz=imgsz, crop_size=380)
+    det_per_batch = [sum(pipe_out.detected[i:i + 8]) for i in range(0, PIPE_FRAMES - 7, 8)]
+    b0 = 8 * int(np.argmin([abs(d - 4) for d in det_per_batch]))
+    stats = check_pipeline_step(pipeline_step_numpy(pipe, clip[b0:b0 + 8], pipe_conf),
+                                pipeline_step_numpy(pipe_cpu, clip[b0:b0 + 8], pipe_conf))
+    log(f"pipeline step GPU vs CPU, frames {b0}-{b0 + 7}: {json.dumps(stats)} (limits: valid equal, boxes "
+        f"{PIPE_BOX_TOL} px, conf {PIPE_CONF_TOL}, masks {PIPE_MASK_AGREE}, probabilities {PIPE_PROB_TOL}); "
+        f"the CPU run took {time.perf_counter() - t:.1f} s")
+    del pipe_cpu
 
     # -- 5. long-term memory on: the plain readout with usage, and consolidation ----------------
     before = mr.memory_readout.launches
@@ -887,7 +1122,8 @@ def main() -> int:
             wrapper_ms = cuda_time_ms(lambda: proto_decode(protos, coeffs, boxes, None, True), iters=200)
             log(f"proto_decode through the Python wrapper {wrapper_ms:.5f} ms")
             kernels = [kernel_entry("proto_decode", "proto_decode", "yolo_puncture_tpu/ops/pallas/proto_decode.py:23",
-                                    launches["proto_decode"], max_err["proto_decode"], times["kernel"][2],
+                                    launches["proto_decode"] + launches["proto_decode_pipeline"],
+                                    max_err["proto_decode"], times["kernel"][2],
                                     times["plain"][2], times["matmul"][2], bytes_moved, flops, FP32_FLOP_PER_S)]
         else:
             roofline_ms(f"proto_decode B={Bt}", bytes_moved, flops, FP32_FLOP_PER_S)
@@ -999,6 +1235,43 @@ def main() -> int:
             f"{sorted(window_times)[1]:.1f} ms median of 3 ({window_times}), launches per window {per_window} [{smi}]")
         stages = tracker_stage_ms(c, step_frames[:5])
         log(f"tracker {what} stages ms, synchronised: {json.dumps(stages)}")
+
+    # -- 6e. the speed pipeline: proto_decode at its launch shape, process_frames on the host clock ----
+    protos, coeffs, boxes = proto_decode_inputs(8, 1, Hp, Wp, nm, 17, device)
+    out = torch.empty((8, 1, Hp, Wp), dtype=torch.float32, device=device)
+    launch = kernel_fn()   # the name was rebound to the other kernels' entry points in 6b and 6c
+    args = kernel_args(protos, coeffs, boxes, out, None, False)
+    pflat = protos.reshape(8, nm, Hp * Wp)
+    fns = {"kernel": lambda: launch(*args),
+           "plain": lambda: proto_decode_reference(protos, coeffs, boxes, None, False),
+           "matmul": lambda: torch.matmul(coeffs, pflat)}
+    times = interleaved_times_ms(fns)
+
+    def raw_soft():
+        a = kernel_args(protos, coeffs, boxes, out, None, False)   # binds the current stream
+        return lambda: launch(*a)
+
+    graph = {"kernel": sorted(graph_time_ms(raw_soft) for _ in range(5)),
+             "matmul": sorted(graph_time_ms(lambda: fns["matmul"]) for _ in range(5))}
+    P = Hp * Wp
+    bytes_moved, flops = 4 * (8 * nm * P + 8 * nm + 8 * 4 + 8 * P), 2 * 8 * P * nm
+    roofline_ms("proto_decode B=8 N=1 soft, no crop (the pipeline's launch)", bytes_moved, flops, FP32_FLOP_PER_S)
+    log(f"proto_decode B=8 N=1 {Hp}x{Wp} soft, no crop, ms over 5 repeats of 200 launches from Python: "
+        + "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in times.items())
+        + "; replayed from a CUDA graph of 20: "
+        + "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in graph.items())
+        + f" ({bytes_moved} B, {flops} FLOP) [{smi}]")
+    del protos, coeffs, boxes, out, pflat
+    pipe.process_frames(list(clip), fps=30.0, conf=pipe_conf)  # warm-up
+    pipe.timer = StageTimer()
+    times = host_ms(lambda: pipe.process_frames(list(clip), fps=30.0, conf=pipe_conf))
+    median = sorted(times)[1]
+    log(f"pipeline {PIPE_FRAMES} frames {h0}x{w0}@{imgsz}, B3 at 380, device_batch 8: {median:.1f} ms median of 3 "
+        f"({times}), {PIPE_FRAMES / median * 1e3:.1f} frames/s [{smi}]")
+    log(f"pipeline stages over the 3 runs, unsynchronised (StageTimer): {json.dumps(pipe.timer.summary())} [{smi}]")
+    stages = pipeline_stage_ms(pipe, clip, pipe_conf)
+    log(f"pipeline stages ms over the clip ({n_batches} batches), synchronised: "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} [{smi}]")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,18 @@
 
     python3 scripts/profile_predict_torch.py [--batch 4] [--retina] [--out chiprun_out]
     python3 scripts/profile_predict_torch.py --tracker [--out DIR]
+    python3 scripts/profile_predict_torch.py --pipeline [--out DIR]
 
 Without ``--tracker``: one ``YOLO.predict`` in ``chip_smoke.py``'s configuration
 (YOLOv10-S seg, seeded random init, seeded 720×1280 frames, imgsz 640, conf
 0.018).  With it: the mask tracker in ``chip_smoke.py``'s configuration
 (``TrackerCore`` at 480×864, 4 objects, a ring of 8 frames written every 5, the
 shipped needle checkpoint, a moving bright bar), two profiles: one 5-frame
-window of ``step_batch`` and 5 ``step`` calls.  Each time two warm-up calls,
+window of ``step_batch`` and 5 ``step`` calls.  With ``--pipeline``: one
+``VideoSpeedPipeline.process_frames`` in ``chip_smoke.py``'s phase 3d
+configuration (67 needle frames of 720×1280, YOLOv10-S seg at 640²,
+EfficientNet-B3 on 380² crops, ``device_batch=8``, seeded random weights, the
+same ``conf``).  Each time two warm-up calls,
 then one call under ``torch.profiler``.  Prints one JSON object per profile:
 the call's wall time on the host clock, the summed device time of every kernel
 and copy (one stream, so the sum is the busy time), the busy share, and the ten
@@ -37,6 +42,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--retina", action="store_true")
     ap.add_argument("--tracker", action="store_true")
+    ap.add_argument("--pipeline", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -61,6 +67,22 @@ def main() -> int:
                 fn()
             profile_call(fn, label, args.out, smi, {"call": label, "frames": len(window), **TRACK_GEOMETRY,
                                                     "ring_slots_valid": int(core.memory.valid.sum())})
+        return 0
+
+    if args.pipeline:
+        from chip_smoke import PIPE_FRAMES, PIPE_KEY_FRAME, needle_clip, pipeline_conf
+        from yolo_puncture_tpu_torch import YOLO
+        from yolo_puncture_tpu_torch.pipeline import VideoSpeedPipeline
+        from yolo_puncture_tpu_torch.tasks import ClassifierNet
+
+        clip, _, _ = needle_clip(PIPE_FRAMES, 720, 1280, PIPE_KEY_FRAME, seed=2)
+        pipe = VideoSpeedPipeline(YOLO("yolo10s-seg", nc=1, seed=0), ClassifierNet("efficientnet_b3", seed=0),
+                                  device_batch=8, imgsz=640, crop_size=380)
+        conf, _ = pipeline_conf(pipe, clip)
+        for _ in range(2):
+            pipe.process_frames(list(clip), fps=30.0, conf=conf)
+        profile_call(lambda: pipe.process_frames(list(clip), fps=30.0, conf=conf), "pipeline", args.out, smi,
+                     {"frames": PIPE_FRAMES, "device_batch": 8, "conf": conf})
         return 0
 
     from chip_smoke import seeded_frames

@@ -87,3 +87,107 @@ def test_boxes_and_masks_accessors_match_jax():
     np.testing.assert_array_equal(got_m.data, ref_m.data)
     _assert_same_polys(got_m.xy, ref_m.xy)
     _assert_same_polys(got_m.xyn, ref_m.xyn)
+
+
+# ---------------------------------------------------------------------------
+# The min-area rectangle, fills and encodings
+# ---------------------------------------------------------------------------
+
+RECT_ATOL = 1e-9  # the JAX package takes its C++ calipers where built, the port numpy's
+
+
+def _point_sets(seed, n=60):
+    """Point clouds: float, integer, collinear, one or two points, duplicates."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        k = int(rng.integers(1, 40))
+        pts = rng.uniform(-50, 200, (k, 2))
+        if i % 3 == 1:
+            pts = np.round(pts)
+        if i % 7 == 2:
+            pts = np.stack([np.linspace(0, 30, k), 2 * np.linspace(0, 30, k) + 1], -1)
+        if i % 5 == 3:
+            pts = np.concatenate([pts, pts[:3]])
+        out.append(pts)
+    return out
+
+
+def test_convex_hull_and_min_area_rect_match_jax(monkeypatch):
+    """The same rectangle as the JAX package's numpy calipers, and the same area
+    as its C++ ones (where two hull edges give rectangles of equal area, the two
+    may keep different ones: seed 11 has such a quadrilateral)."""
+    import yolo_puncture_tpu.native as jnative
+
+    native = [jgeo.min_area_rect(pts) for pts in _point_sets(11)]
+    monkeypatch.setattr(jnative, "min_area_rect_native", lambda pts: None)
+    for pts, nat in zip(_point_sets(11), native):
+        np.testing.assert_array_equal(pgeo.convex_hull(pts), jgeo.convex_hull(pts))
+        got = pgeo.min_area_rect(pts)
+        assert got == jgeo.min_area_rect(pts)
+        area, nat_area = got[1][0] * got[1][1], nat[1][0] * nat[1][1]
+        assert abs(area - nat_area) <= RECT_ATOL * max(nat_area, 1.0)
+    assert pgeo.min_area_rect(np.zeros((0, 2))) == ((0.0, 0.0), (0.0, 0.0), 0.0)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["jax-native", "jax-numpy"])
+def test_min_rect_len_matches_jax(native, monkeypatch):
+    """On fuzzed polygons (truncated to int first) and fuzzed masks, against the
+    JAX package with its C++ calipers and with its numpy ones."""
+    if not native:
+        import yolo_puncture_tpu.native as jnative
+
+        monkeypatch.setattr(jnative, "min_area_rect_native", lambda pts: None)
+    for pts in _point_sets(12):
+        np.testing.assert_allclose(pgeo.min_rect_len(pts), jgeo.min_rect_len(pts), rtol=0, atol=RECT_ATOL)
+    for m in _masks("blobs", seed=13) + _masks("rects", seed=14):
+        np.testing.assert_allclose(pgeo.min_rect_len_mask(m), jgeo.min_rect_len_mask(m), rtol=0, atol=RECT_ATOL)
+    assert pgeo.min_rect_len([[1, 2], [3, 4]]) == (0.0, 0.0)
+
+
+@pytest.mark.parametrize("has_cv2", [True, False])
+def test_fills_and_overlays_match_jax(has_cv2, monkeypatch):
+    monkeypatch.setattr(pgeo, "_HAS_CV2", has_cv2)
+    monkeypatch.setattr(jgeo, "_HAS_CV2", has_cv2)
+    rng = np.random.default_rng(15)
+    for _ in range(20):
+        poly = rng.uniform(-5, 45, (int(rng.integers(3, 9)), 2))
+        np.testing.assert_array_equal(pgeo.polygon_to_mask((40, 50, 3), poly), jgeo.polygon_to_mask((40, 50, 3), poly))
+        x1, y1 = rng.integers(0, 30, 2)
+        x2, y2 = x1 + rng.integers(2, 25), y1 + rng.integers(2, 20)
+        np.testing.assert_array_equal(pgeo.create_roi_mask((40, 50), x1, y1, x2, y2, "needle"),
+                                      jgeo.create_roi_mask((40, 50), x1, y1, x2, y2, "needle"))
+    assert not pgeo.polygon_to_mask((4, 5, 3), []).any()
+    for m in _masks("speckle", seed=16, n=10):
+        ox, oy = (int(v) for v in rng.integers(-3, 4, 2))
+        np.testing.assert_array_equal(pgeo.binary_mask_overlay((32, 32, 3), m, ox, oy),
+                                      jgeo.binary_mask_overlay((32, 32, 3), m, ox, oy))
+    assert not pgeo.binary_mask_overlay((4, 4, 3), None).any()
+
+
+def test_numpy_fill_matches_jax():
+    rng = np.random.default_rng(17)
+    for _ in range(20):
+        pts = rng.integers(-5, 45, (int(rng.integers(3, 9)), 2)).astype(np.int32)
+        got = pgeo._fill_poly_np(np.zeros((40, 50, 3), np.uint8), pts, (255, 255, 0))
+        np.testing.assert_array_equal(got, jgeo._fill_poly_np(np.zeros((40, 50, 3), np.uint8), pts, (255, 255, 0)))
+
+
+def test_encodings_and_mask_filter_match_jax():
+    for m in _masks("rects", seed=18, n=20) + _masks("speckle", seed=19, n=10):
+        assert pgeo.rle_encoding(m) == jgeo.rle_encoding(m) == jgeo._rle_encoding_np(m)
+        assert pgeo._rle_encoding_np(m) == jgeo._rle_encoding_np(m)
+        for normalize in (True, False):
+            assert pgeo.polygon_encoding(m, normalize) == jgeo.polygon_encoding(m, normalize)
+    rng = np.random.default_rng(20)
+    masks = []
+    for _ in range(6):
+        seg = np.zeros((60, 80), bool)
+        x, y = rng.integers(0, 60), rng.integers(0, 40)
+        seg[y:y + rng.integers(2, 20), x:x + rng.integers(2, 20)] = True
+        ys, xs = np.nonzero(seg)
+        masks.append({"segmentation": seg, "area": int(seg.sum()), "crop_box": [0, 0, 80, 60],
+                      "bbox": [int(xs.min()), int(ys.min()), int(np.ptp(xs)) + 1, int(np.ptp(ys)) + 1]})
+    for topn in (1, 3):
+        assert [id(m) for m in pgeo.filter_masks(masks, topn)] == [id(m) for m in jgeo.filter_masks(masks, topn)]
+    assert pgeo.filter_masks([]) is None

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
-``YOLO.predict`` and ``TrackerCore`` on ``cuda`` against the same code on the CPU.
+``YOLO.predict``, ``TrackerCore`` and the speed pipeline's device step on ``cuda``
+against the same code on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -24,8 +25,12 @@ from chip_smoke import (
     TAIL_CASES,
     check_decode_tail_case,
     check_proto_decode_case,
+    check_pipeline_step,
     check_readout_case,
     check_readout_fp64_case,
+    needle_clip,
+    pipeline_conf,
+    pipeline_step_numpy,
 )
 from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
@@ -194,3 +199,27 @@ def test_tracker_on_the_card_matches_the_cpu(cuda, long_term):
     np.testing.assert_allclose(out[gpu], out[cpu], rtol=0, atol=1e-3)
     assert gpu.memory.write_pos == cpu.memory.write_pos and gpu.memory.frame_idx == cpu.memory.frame_idx
     assert gpu.memory.valid.tolist() == cpu.memory.valid.tolist()
+
+
+@pytest.mark.gpu
+def test_pipeline_step_on_the_card_matches_the_cpu(cuda):
+    """One batch of ``VideoSpeedPipeline._step`` (letterbox, YOLOv10n seg, the best
+    slot's mask through ``proto_decode``, crops, EfficientNet-B0) on the card and
+    on the CPU, same seeded weights: ``chip_smoke.py``'s phase 4 limits."""
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.pipeline import VideoSpeedPipeline
+    from yolo_puncture_tpu_torch.tasks import ClassifierNet
+
+    frames, _, _ = needle_clip(8, 96, 160, 4, seed=0)
+
+    def make(device):
+        return VideoSpeedPipeline(YOLO("yolo10n-seg", nc=1, seed=1, device=device),
+                                  ClassifierNet("efficientnet_b0", input_size=64, seed=1, device=device),
+                                  device_batch=8, imgsz=64, crop_size=64)
+
+    gpu, cpu = make(None), make("cpu")
+    conf, _ = pipeline_conf(cpu, frames)
+    before = proto_decode.launches
+    got = pipeline_step_numpy(gpu, frames, conf)
+    assert proto_decode.launches == before + 1
+    check_pipeline_step(got, pipeline_step_numpy(cpu, frames, conf))

@@ -2,7 +2,8 @@
 pulls in neither JAX, flax, msgpack nor the JAX package ``yolo_puncture_tpu``, and
 every module imports, and the tracker resizes frames and masks, with cv2 out of
 reach (the detector's ``ops/geometry.py`` and the predictor's file reader take cv2
-only when it is installed).
+only when it is installed); the speed pipeline also runs with cv2 and yaml out of
+reach.
 
 Each check runs in a fresh interpreter, since this test process has JAX loaded.
 """
@@ -45,7 +46,10 @@ def test_walk_finds_every_layer():
     names = _port_modules()
     for m in ("models.yolo", "nn.common", "nn.heads", "ops.kernels.proto_decode", "ops.masks",
               "predict.predictor", "utils.convert", "_build", "ops.kernels.memory_readout",
-              "ops.kernels.decode_tail", "ops.resize", "track", "track.network", "track.memory", "track.core"):
+              "ops.kernels.decode_tail", "ops.resize", "track", "track.network", "track.memory", "track.core",
+              "registry", "utils.config", "utils.profiling", "utils.transform", "ops.signal", "ops.geometry",
+              "analytics", "analytics.keyframe", "analytics.speed", "analytics.stats", "models.efficientnet",
+              "tasks", "tasks.classify", "pipeline", "pipeline.video", "pipeline.runner"):
         assert f"yolo_puncture_tpu_torch.{m}" in names
 
 
@@ -80,3 +84,42 @@ def test_build_lists_every_kernel_source():
     from yolo_puncture_tpu_torch import _build
 
     assert _build.sources() == ["decode_tail", "memory_readout", "proto_decode"]
+
+
+def test_pipeline_runs_without_cv2_or_yaml_and_wants_a_card():
+    """With jax, flax, yolo_puncture_tpu, cv2 and yaml all out of reach: every module
+    imports, ``load_config()`` (no file) pulls in no yaml, the pipeline runs a few
+    frames on the CPU (contours from the numpy tracer), and without a card the
+    classifier and the detector refuse the default device."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FORBIDDEN + ('cv2', 'yaml')!r}: sys.modules[m] = None\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "from yolo_puncture_tpu_torch.utils.config import load_config\n"
+        "assert load_config().analytics.judge_wnd == 20\n"
+        "import numpy as np, torch\n"
+        "from yolo_puncture_tpu_torch import YOLO\n"
+        "from yolo_puncture_tpu_torch.pipeline import VideoSpeedPipeline\n"
+        "from yolo_puncture_tpu_torch.tasks import ClassifierNet\n"
+        "if not torch.cuda.is_available():\n"
+        "    for make in (lambda: ClassifierNet('efficientnet_b0'), lambda: YOLO('yolo10n-seg')):\n"
+        "        try:\n"
+        "            make()\n"
+        "        except RuntimeError:\n"
+        "            pass\n"
+        "        else:\n"
+        "            raise AssertionError('built on the card without a card')\n"
+        "pipe = VideoSpeedPipeline(YOLO('yolo10n-seg', nc=1, max_det=8, device='cpu'),\n"
+        "                          ClassifierNet('efficientnet_b0', input_size=64, device='cpu'),\n"
+        "                          device_batch=2, imgsz=64, crop_size=64)\n"
+        "frames = np.random.default_rng(0).integers(0, 255, (3, 48, 80, 3), np.uint8)\n"
+        "out = pipe.process_frames(list(frames), fps=30.0, conf=0.0, judge_wnd=2)\n"
+        "assert len(out.lens) == 3 and all(out.detected)\n"
+        "leaked = sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'cv2') and sys.modules[k] is not None)\n"
+        "assert not leaked, leaked\n"
+        "print('pipeline without cv2 or yaml')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("pipeline without cv2 or yaml")

@@ -80,6 +80,89 @@ def seeded_jax_variables(module, example, seed: int = 0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def classifier_images(size: int, n: int = 6) -> np.ndarray:
+    """Seeded RGB uint8 images (n, size, size, 3); every other one black below
+    and right of a random corner, as the zero-padded crops at a frame's edge are."""
+    rng = np.random.default_rng(size)
+    images = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    for im in images[1::2]:
+        y, x = rng.integers(size // 4, size, 2)
+        im[y:] = 0
+        im[:, x:] = 0
+    return images
+
+
+def calibrated_batch_stats(variables, model, inputs, key_of):
+    """``variables`` with every BatchNorm's statistics replaced by those of
+    ``inputs``, measured by ``model`` (the port's counterpart, loaded from
+    ``variables``) in train mode.  ``key_of(path, leaf)`` maps a flax variable
+    to the port's state-dict key.  With the seeded statistics alone the
+    activations of a deep network fade through the layers until every input
+    gives the same outputs; with the inputs' own every layer stays near unit
+    scale and the outputs differ from input to input."""
+    import jax
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(inputs)
+    model.eval()
+    sd = model.state_dict()
+
+    def stat(path, leaf):
+        names = tuple(p.key for p in path)
+        return sd[key_of(names[:-1], names[-1])].numpy()
+
+    return {**variables, "batch_stats": jax.tree_util.tree_map_with_path(stat, variables["batch_stats"])}
+
+
+def seeded_classifier_variables(variant: str, size: int, seed: int = 3):
+    """numpy variable tree of the JAX package's ``EfficientNet(variant)`` with
+    two classes: ``seeded_jax_variables`` with the BatchNorm statistics of
+    ``classifier_images(size)`` (``calibrated_batch_stats``)."""
+    import jax.numpy as jnp
+
+    from yolo_puncture_tpu.models.efficientnet import EfficientNet
+    from yolo_puncture_tpu_torch.models.efficientnet import preprocess_classifier
+    from yolo_puncture_tpu_torch.registry import create_model
+    from yolo_puncture_tpu_torch.utils.convert import (
+        _FLAX_BLOCK,
+        _LEAF,
+        export_classifier_state_dict,
+        load_classifier_state_dict,
+    )
+
+    variables = seeded_jax_variables(EfficientNet(variant=variant, num_classes=2),
+                                     jnp.zeros((1, size, size, 3), jnp.float32), seed)
+    model = create_model(f"efficientnet_{variant}")
+    load_classifier_state_dict(model, export_classifier_state_dict(variables))
+
+    def key_of(path, leaf):
+        return _FLAX_BLOCK.sub(lambda m: f"blocks.{m.group(1)}.{m.group(2)}.", ".".join(path) + ".") + _LEAF[leaf]
+
+    images = preprocess_classifier(torch.from_numpy(classifier_images(size)), size)
+    return calibrated_batch_stats(variables, model, images, key_of)
+
+
+def seeded_detector_variables(version: str, frames_bgr: np.ndarray, imgsz: int, seed: int = 11):
+    """numpy variable tree of the JAX package's YOLO ``version``-n seg with one
+    class: ``seeded_jax_variables`` with the BatchNorm statistics of
+    ``frames_bgr`` letterboxed to ``imgsz`` (``calibrated_batch_stats``), so
+    that the best score differs from frame to frame."""
+    import jax.numpy as jnp
+
+    from yolo_puncture_tpu.models.yolo import YOLOModel
+    from yolo_puncture_tpu_torch.ops.letterbox import letterbox
+    from yolo_puncture_tpu_torch.utils.convert import yolo_flax_path_to_torch_key
+
+    variables = seeded_jax_variables(YOLOModel(version=version, scale="n", nc=1, task="segment"),
+                                     jnp.zeros((1, imgsz, imgsz, 3)), seed)
+    model = port_model_from_jax(version, "n", 1, "segment", variables)
+    images, _, _ = letterbox(torch.from_numpy(frames_bgr), imgsz, bgr_to_rgb=True)
+    return calibrated_batch_stats(variables, model, images, yolo_flax_path_to_torch_key)
+
+
 def port_model_from_jax(version, scale, nc, task, variables):
     """The port's YOLOModel on the CPU, loaded from JAX variables through the bridge."""
     from yolo_puncture_tpu_torch.models.yolo import YOLOModel

@@ -80,7 +80,7 @@ def decode_masks(
     H, W = img_hw
     protos_cf = protos.permute(0, 3, 1, 2).float().contiguous()  # a view of the head's NCHW bank
     coeffs = coeffs.float().contiguous()
-    boxes = boxes.float()
+    boxes = boxes.float().contiguous()  # a slice of the selected slots is strided
     if upsample and (Hp, Wp) != (H, W):
         masks = upsample_bilinear_matmul(proto_decode(protos_cf, coeffs, boxes, None, crop=False), H, W)
         if crop:

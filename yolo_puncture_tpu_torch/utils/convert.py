@@ -22,6 +22,10 @@ ndarray packed as ``(shape, dtype name, bytes)``).  ``export_tracker_state_dict`
 maps the tracker's variable tree onto ``track/network.py PropagationNetwork``:
 the port's modules carry the flax attribute names and concatenate channels in
 the JAX package's order, so the map is HWIO → OIHW plus the BatchNorm leaf names.
+``export_classifier_state_dict`` maps the JAX package's EfficientNet variables
+onto timm's keys (``blocks_{s}_{i}`` → ``blocks.{s}.{i}``), the keys the port's
+``models/efficientnet.py`` carries, so a timm checkpoint and a JAX variable tree
+load through the same ``load_classifier_state_dict``.
 """
 
 from __future__ import annotations
@@ -339,4 +343,41 @@ def load_tracker_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> No
     if missing or unexpected:
         raise ValueError(
             f"state dict does not fit the tracker: missing {missing[:8]}, unexpected {list(unexpected)[:8]}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Classifier variables → timm-keyed EfficientNet state dict
+# ---------------------------------------------------------------------------
+
+_FLAX_BLOCK = re.compile(r"(?:^|(?<=\.))blocks_(\d+)_(\d+)\.")
+
+
+def export_classifier_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's EfficientNet variables (``params`` + ``batch_stats``)
+    → timm-keyed state dict of numpy arrays: conv kernels HWIO → OIHW (a
+    depthwise ``(k, k, 1, C)`` becomes ``(C, 1, k, k)``), Dense ``(in, out)`` →
+    ``(out, in)``, ``scale`` → ``weight``, ``mean`` / ``var`` → ``running_*``."""
+    out: Dict[str, np.ndarray] = {}
+    for tree in (variables["params"], variables.get("batch_stats", {})):
+        for path, arr in _flatten(tree).items():
+            a = np.asarray(arr)
+            if path[-1] == "kernel":
+                a = np.ascontiguousarray(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+            key = _FLAX_BLOCK.sub(lambda m: f"blocks.{m.group(1)}.{m.group(2)}.", ".".join(path[:-1]) + ".")
+            out[key + _LEAF[path[-1]]] = a
+    return out
+
+
+def load_classifier_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+    """Load a timm-keyed state dict (numpy or torch values; a timm checkpoint or
+    ``export_classifier_state_dict``'s output) into the port's EfficientNet.
+    Strict: every parameter and running statistic must be present and every key
+    used; only BatchNorm's ``num_batches_tracked`` may be absent or extra."""
+    tensors = {k: torch.tensor(np.asarray(v)) for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    missing, unexpected = model.load_state_dict(tensors, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(
+            f"state dict does not fit the classifier: missing {missing}, unexpected {list(unexpected)}"
         )
