@@ -9,11 +9,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card:
      ``proto_decode`` (soft and binary, pixel counts that leave the 4-pixel
      vectors and the blocks ragged, 1 to 70 instances, box edges on vector
-     boundaries), ``memory_readout`` (fp32 and bf16, ragged shapes, odd
+     boundaries; bf16 at the bf16 detector's, pipeline's and bench's shapes),
+     ``memory_readout`` (fp32 and bf16, ragged shapes, odd
      object counts, the memory split over blocks, a softmax spread over the
      memory and one carried by a few elements; fp32 also against a float64
      readout on large logits) and ``decode_tail`` (fp32 and bf16, the window,
-     one frame and shapes down to a single pixel);
+     one frame, shapes down to a single pixel, and the bench's 128 × 2 cells);
   3. drive the main paths with every kernel's launch count set to 0 just before
      and read just after, each kernel of a path must have run:
      ``YOLO("yolo10s-seg").predict`` at imgsz 640 on four seeded 720×1280 frames
@@ -28,7 +29,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      frame, ``conf`` between two of the clip's best scores so that some frames
      are detected and some not (``proto_decode`` once per batch), and two clips
      through the interleaved batches of ``process_videos``, each against its own
-     run;
+     run; then the bf16 serving configuration: ``YOLO(dtype=bfloat16).predict``
+     (its masks through ``proto_decode_bf16``) and the pipeline with a bf16
+     detector and a bf16 B3, each held to the fp32 run; the bench's fused
+     seg+track step (``python -m yolo_puncture_tpu_torch.bench``: B 128 of
+     720×1280, bf16 YOLOv10-S seg, the bf16 tracker at 480×864, window 4) for 5
+     timed steps, whose line it prints; and the tracker-quality protocol
+     (``track/quality.py``, fp32 and bf16) against the JAX package's 0.662;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -38,7 +45,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   6. time each kernel, its plain version and a PyTorch yardstick with CUDA
      events, and ``predict``, one ``step``, one window and the pipeline's
      ``process_frames`` over the clip (frames per second, its stages) with a
-     synchronised host clock.
+     synchronised host clock, in fp32 and bf16, and the bench step's stages.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on its main path, its error against the plain version, its
@@ -51,6 +58,7 @@ the classifier's are a seeded random init too.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -108,6 +116,21 @@ TRACK_ID_AGREE = 0.999
 # the speed pipeline's clip: 8 full batches of 8 and a ragged one
 PIPE_FRAMES, PIPE_KEY_FRAME = 67, 24
 
+# the bf16 detector and classifier against the fp32 ones on the card, same seeded weights
+# (mean absolute differences).  Rounding each layer's output to bf16 moves a unit-scale
+# activation by about 2^-9; the seeded YOLOv10-S (BatchNorm statistics from seeded noise)
+# damps what reaches the head, where it measured 5.5e-5 in the class scores and 0.22 px
+# in the boxes over every anchor (NVIDIA H100 80GB HBM3, 700 W): the limits are about
+# ten times that.  The best slot's score of a frame may come from another anchor where
+# two scores nearly tie (measured 0.017 over a batch at conf 0), hence its own limit.
+DET_BF16_SCORE_MEAN = 1e-3
+DET_BF16_BOX_MEAN_PX = 2.0
+STEP_BF16_CONF_MEAN = 0.05
+CLS_BF16_PROB_MEAN = 0.05
+# the tracker-quality protocol on the card against the JAX package's 0.662 (both rows)
+QUALITY_TOL = 0.005
+BENCH_BATCH, BENCH_ITERS = 128, 5
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NEEDLE = os.path.join(ROOT, "resources", "weights", "tracker_propagation_needle.msgpack")
 TRACK_GEOMETRY = dict(image_size=(480, 864), max_objects=4, mem_frames=8, mem_every=5)
@@ -156,6 +179,21 @@ def graph_time_ms(make, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
+def clocked_into(ms: dict, name: str, fn):
+    """``fn``, its calls timed on the host clock with the device synchronised
+    before and after, the ms added to ``ms[name]``; a model's ``dtype`` is kept."""
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t) * 1e3
+        return res
+    if hasattr(fn, "dtype"):
+        run.dtype = fn.dtype
+    return run
+
+
 def predict_stage_ms(det, frames, **kw) -> dict:
     """One ``det.predict(frames, **kw)`` with the predictor's stages timed on the
     host clock, the device synchronised before and after each stage (so the
@@ -164,16 +202,7 @@ def predict_stage_ms(det, frames, **kw) -> dict:
     from yolo_puncture_tpu_torch.predict import predictor as pp
 
     ms = dict.fromkeys(("letterbox", "model", "select", "decode", "paste"), 0.0)
-
-    def clocked(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            ms[name] += (time.perf_counter() - t) * 1e3
-            return out
-        return run
+    clocked = functools.partial(clocked_into, ms)
 
     patched = {"letterbox": "letterbox", "select_detections": "select", "decode_masks": "decode"}
     saved = {attr: getattr(pp, attr) for attr in patched}
@@ -198,10 +227,11 @@ def predict_stage_ms(det, frames, **kw) -> dict:
     return ms
 
 
-def proto_decode_inputs(B, N, Hp, Wp, nm, seed, device, snap=0):
-    """Seeded protos (B, nm, Hp, Wp), coeffs (B, N, nm) and boxes (B, N, 4).  Every
-    fourth box has integer edges (the half-open test); ``snap`` > 0 puts every
-    edge on a multiple of it, the boundaries of the kernel's pixel vectors."""
+def proto_decode_inputs(B, N, Hp, Wp, nm, seed, device, snap=0, dtype=torch.float32):
+    """Seeded protos (B, nm, Hp, Wp) and coeffs (B, N, nm) in ``dtype``, and fp32
+    boxes (B, N, 4).  Every fourth box has integer edges (the half-open test);
+    ``snap`` > 0 puts every edge on a multiple of it, the boundaries of the
+    kernel's pixel vectors."""
     rng = np.random.default_rng(seed)
     protos = rng.standard_normal((B, nm, Hp, Wp)).astype(np.float32)
     coeffs = (0.5 * rng.standard_normal((B, N, nm))).astype(np.float32)
@@ -212,10 +242,11 @@ def proto_decode_inputs(B, N, Hp, Wp, nm, seed, device, snap=0):
     if snap:
         boxes = np.round(boxes / snap) * snap
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)  # noqa: E731
-    return to(protos), to(coeffs), to(boxes)
+    return to(protos).to(dtype), to(coeffs).to(dtype), to(boxes)
 
 
-# (B, N, Hp, Wp, threshold, crop, box edges snapped to multiples of)
+# (B, N, Hp, Wp, threshold, crop, box edges snapped to multiples of[, operand type]); fp32 unless stated
+BF16 = torch.bfloat16
 PROTO_CASES = [
     (4, 32, 160, 160, None, True, 0),     # the detector's shape
     (4, 32, 160, 160, 0.5, True, 0),
@@ -237,41 +268,78 @@ PROTO_CASES = [
     (2, 5, 16, 20, 0.0, True, 0),         # thresholds outside (0, 1) keep the sigmoid
     (2, 5, 16, 20, 1.0, False, 0),
     (8, 1, 160, 160, None, False, 0),     # the speed pipeline's launch: the best slot of 8 frames, soft, no crop
+    # bf16 operands and output: the bf16 detector's predict (B 4, N up to 32), the bf16
+    # pipeline's launch (B 8, N 1, soft, no crop) and the bench's (B 128, N 1), then the
+    # threshold and the ragged and split paths
+    (4, 32, 160, 160, None, True, 0, BF16),
+    (8, 1, 160, 160, None, False, 0, BF16),
+    (128, 1, 160, 160, None, False, 0, BF16),
+    (4, 32, 160, 160, 0.5, True, 0, BF16),
+    (1, 32, 160, 160, 0.3, True, 4, BF16),
+    (2, 70, 33, 45, None, True, 0, BF16),
+    (3, 9, 25, 30, 0.5, False, 0, BF16),
 ]
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits); 0 at x = 0."""
+    a = x.float().abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7), torch.zeros_like(a))
+
+
 def check_proto_decode_case(case, device, seed=100) -> float:
-    """One case of PROTO_CASES on the card, kernel against plain version: soft masks
-    within SOFT_ATOL, binary masks equal outside THRESH_BAND around the threshold.
-    Raises where they disagree; returns the largest soft difference (0 for binary)."""
+    """One case of PROTO_CASES on the card, kernel against plain version.  fp32:
+    soft masks within SOFT_ATOL, binary masks equal outside THRESH_BAND around the
+    threshold.  bf16: soft masks within one bf16 ulp (the kernel's approximate
+    sigmoid puts an fp32 value near a rounding edge on the other side), binary
+    masks equal except at the pixels whose soft values differ (both sides
+    compare the rounded sigmoid with the threshold rounded to bf16).  Raises
+    where they disagree; returns the largest soft difference (0 for binary)."""
     from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode, proto_decode_reference
 
-    B, N, Hp, Wp, thr, crop, snap = case
-    protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, 32, seed, device, snap)
+    B, N, Hp, Wp, thr, crop, snap, *typ = case
+    dtype = typ[0] if typ else torch.float32
+    protos, coeffs, boxes = proto_decode_inputs(B, N, Hp, Wp, 32, seed, device, snap, dtype)
     got = proto_decode(protos, coeffs, boxes, thr, crop)
     ref = proto_decode_reference(protos, coeffs, boxes, thr, crop)
     torch.cuda.synchronize()
-    if got.dtype != torch.float32 or tuple(got.shape) != (B, N, Hp, Wp):
+    what = f"proto_decode B={B} N={N} {Hp}x{Wp} {str(dtype)[6:]}"
+    if got.dtype != dtype or tuple(got.shape) != (B, N, Hp, Wp):
         raise AssertionError(f"proto_decode gave {got.dtype} {tuple(got.shape)}")
     if thr is None:
-        err = float((got - ref).abs().max())
-        log(f"proto_decode B={B} N={N} {Hp}x{Wp} soft crop={crop}: max abs diff {err:.3g}")
-        if not err <= SOFT_ATOL:
-            raise AssertionError(f"soft masks differ by {err} > {SOFT_ATOL}")
+        diff = (got.float() - ref.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.float32:
+            ok, limit = err <= SOFT_ATOL, f"{SOFT_ATOL}"
+        else:
+            ulp = bf16_ulp(torch.maximum(got.float().abs(), ref.float().abs()))
+            ok, limit = bool((diff <= ulp).all()), "one bf16 ulp"
+            log(f"{what} soft crop={crop}: {int((diff > 0).sum())} of {diff.numel()} values differ")
+        log(f"{what} soft crop={crop}: max abs diff {err:.3g} (limit {limit})")
+        if not ok:
+            raise AssertionError(f"soft masks differ by {err}, more than {limit}")
         return err
     soft = proto_decode_reference(protos, coeffs, boxes, None, crop)
-    bad = (got != ref) & ((soft - thr).abs() > THRESH_BAND)
+    if dtype == torch.float32:
+        excused, why = (soft - thr).abs() <= THRESH_BAND, f"within ±{THRESH_BAND:.3g} of the threshold"
+    else:
+        excused, why = proto_decode(protos, coeffs, boxes, None, crop) != soft, "where the soft values differ"
+    bad = (got != ref) & ~excused
     n_diff, n_bad = int((got != ref).sum()), int(bad.sum())
-    log(f"proto_decode B={B} N={N} {Hp}x{Wp} thr={thr} crop={crop}: "
-        f"{n_diff} binary pixels differ, {n_bad} outside the ±{THRESH_BAND} band")
-    if n_bad or not set(torch.unique(got).tolist()) <= {0.0, 1.0}:
+    log(f"{what} thr={thr} crop={crop}: {n_diff} binary pixels differ, {n_bad} of them not {why}")
+    if n_bad or not set(torch.unique(got.float()).tolist()) <= {0.0, 1.0}:
         raise AssertionError(f"{n_bad} binary pixels differ away from the threshold")
     return 0.0
 
 
-def check_proto_decode(device) -> float:
-    """Kernel vs plain version on the card; returns the largest soft difference."""
-    return max(check_proto_decode_case(case, device, 100 + i) for i, case in enumerate(PROTO_CASES))
+def check_proto_decode(device) -> dict:
+    """Kernel vs plain version on the card; returns the largest soft difference
+    for each operand type."""
+    worst = {torch.float32: 0.0, BF16: 0.0}
+    for i, case in enumerate(PROTO_CASES):
+        dtype = case[7] if len(case) > 7 else torch.float32
+        worst[dtype] = max(worst[dtype], check_proto_decode_case(case, device, 100 + i))
+    return worst
 
 
 def seeded_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -392,6 +460,8 @@ READOUT_CASES = [
     (52, 300, 3, "random", 3),           # the split forced at a small shape
     (65, 333, 5, "last", 3),             # two of three splits with no valid element
     (8100, 12968, 4, "slots", 2),
+    (6480, 12968, 2, "all", None),       # the bench's window: 4 frames of 30 x 54, one object pair
+    (6480, 12968, 2, "slots", None),
 ]
 # the same tuples, for the fp32 kernel against a float64 readout on matched inputs
 READOUT_FP64_CASES = [(96, 640, 2, "random", None), (96, 640, 2, "random", 3),
@@ -504,8 +574,9 @@ def tail_inputs(N, No, H16, W16, dtype, seed, device):
 
 
 # (N, No, H16, W16): the window, one frame, then shapes that leave the kernel's 32 x 8
-# pixel tiles ragged in both stages, down to a single pixel
-TAIL_CASES = [(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7), (3, 1, 1, 1), (2, 1, 7, 9), (1, 3, 17, 33)]
+# pixel tiles ragged in both stages, down to a single pixel, and the bench's batch
+TAIL_CASES = [(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7), (3, 1, 1, 1), (2, 1, 7, 9), (1, 3, 17, 33),
+              (128, 2, 30, 54)]   # the bench's launch: 128 frames x 2 objects, 256 cells
 TAIL_TOL = {torch.float32: FP32_TOL, torch.bfloat16: TAIL_BF16_TOL}
 
 
@@ -700,16 +771,7 @@ def pipeline_stage_ms(pipe, frames, conf: float) -> dict:
     from yolo_puncture_tpu_torch.utils.profiling import StageTimer
 
     ms = dict.fromkeys(("letterbox", "model", "select", "decode", "crops", "classifier"), 0.0)
-
-    def clocked(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            ms[name] += (time.perf_counter() - t) * 1e3
-            return out
-        return run
+    clocked = functools.partial(clocked_into, ms)
 
     patched = {"letterbox": "letterbox", "select_detections": "select", "decode_masks": "decode"}
     saved = {attr: getattr(pr, attr) for attr in patched}
@@ -861,16 +923,7 @@ def tracker_stage_ms(core, frames) -> dict:
     out = {}
     for mode in ("window", "steps"):
         ms = dict.fromkeys(("encode", "readout", "head_sensory", "decode_tail", "write"), 0.0)
-
-        def clocked(name, fn):
-            def run(*a, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                res = fn(*a, **k)
-                torch.cuda.synchronize()
-                ms[name] += (time.perf_counter() - t) * 1e3
-                return res
-            return run
+        clocked = functools.partial(clocked_into, ms)
 
         net = core.net
         saved_kernel = tc.memory_readout_kernel
@@ -902,6 +955,95 @@ def tracker_stage_ms(core, frames) -> dict:
     return out
 
 
+def head_bf16_vs_fp32(det32, det16, frames, imgsz) -> dict:
+    """The detector head's outputs in bf16 against fp32 for the same frames on the
+    card: mean absolute differences over every anchor of the class scores and the
+    boxes (px at imgsz), and of the bf16 prototypes and coefficients."""
+    from yolo_puncture_tpu_torch.ops.letterbox import letterbox
+
+    x = torch.from_numpy(frames).to(det32.device)
+    with torch.no_grad():
+        o32 = det32.model(letterbox(x, imgsz, bgr_to_rgb=True)[0])
+        o16 = det16.model(letterbox(x, imgsz, bgr_to_rgb=True, dtype=torch.bfloat16)[0])
+    if not (o16["probs"].dtype == o16["boxes"].dtype == torch.float32 and o16["proto"].dtype == torch.bfloat16):
+        raise AssertionError("the bf16 head must give fp32 boxes and scores and bf16 prototypes")
+    return {k: float((o16[k].float() - o32[k].float()).abs().mean()) for k in ("probs", "boxes", "coeffs", "proto")}
+
+
+def bench_stage_ms(model, tracker, frames, imgsz) -> dict:
+    """One fused bench step (``yolo_puncture_tpu_torch.bench.make_fused_step``
+    over ``bench_models``' detector and tracker)
+    with its stages timed on the host clock, the device synchronised before and
+    after each: the detector's letterbox, model, select and decode; the tracker's
+    resize, key encoder, readout (32 windows), head and sensory GRU, ring writes,
+    decode tail, logits upsample and aggregation.  'rest' is what remains: the
+    skip projections, the memory bank's concatenation, the argmax, the checksum."""
+    import yolo_puncture_tpu_torch.bench as bm
+    import yolo_puncture_tpu_torch.track as trk
+    import yolo_puncture_tpu_torch.track.core as tc
+
+    ms = dict.fromkeys(("letterbox", "model", "select", "decode", "resize", "encode", "readout", "head_sensory",
+                        "write", "decode_tail", "upsample", "aggregate"), 0.0)
+    clocked = functools.partial(clocked_into, ms)
+
+    mem, track_fn = tracker
+    net = track_fn.core.net
+    mod_attrs = {(bm, "letterbox"): "letterbox", (bm, "select_detections"): "select", (bm, "decode_masks"): "decode",
+                 (trk, "resize_bilinear"): "resize", (tc, "memory_readout_kernel"): "readout",
+                 (tc, "upsample_bilinear_matmul"): "upsample", (tc, "soft_aggregate"): "aggregate"}
+    saved = {key: getattr(*key) for key in mod_attrs}
+    net_attrs = {"encode_key": "encode", "update_sensory": "head_sensory", "encode_value": "write"}
+    try:
+        for (mod, attr), stage in mod_attrs.items():
+            setattr(mod, attr, clocked(stage, saved[(mod, attr)]))
+        for attr, stage in net_attrs.items():
+            setattr(net, attr, clocked(stage, getattr(net, attr)))
+        net.decoder.head = clocked("head_sensory", net.decoder.head)
+        net.decoder.decode_tail = clocked("decode_tail", net.decoder.decode_tail)
+        step = bm.make_fused_step(clocked("model", model), track_fn, imgsz)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(mem, frames, bm.CONF, torch.zeros((), device=frames.device))
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+        for attr in net_attrs:
+            delattr(net, attr)
+        del net.decoder.head, net.decoder.decode_tail
+    ms["rest"] = total - sum(ms.values())
+    ms["total"] = total
+    return ms
+
+
+def proto_decode_bf16_times(Bt, N, Hp, Wp, crop, device, seed=21) -> dict:
+    """``proto_decode_bf16`` at one launch shape: the bare launch, the plain
+    version and ``torch.matmul`` of the bare product in bf16, in turns (200
+    launches, 5 repeats), and the launch and the matmul replayed from CUDA graphs.
+    Returns the sorted times and the bytes and operations of the work."""
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import kernel_args, kernel_fn, proto_decode_reference
+
+    protos, coeffs, boxes = proto_decode_inputs(Bt, N, Hp, Wp, 32, seed, device, dtype=torch.bfloat16)
+    out = torch.empty((Bt, N, Hp, Wp), dtype=torch.bfloat16, device=device)
+    launch, pflat = kernel_fn(torch.bfloat16), protos.reshape(Bt, 32, Hp * Wp)
+    args = kernel_args(protos, coeffs, boxes, out, None, crop)
+    fns = {"kernel": lambda: launch(*args),
+           "plain": lambda: proto_decode_reference(protos, coeffs, boxes, None, crop),
+           "matmul": lambda: torch.matmul(coeffs, pflat)}
+    times = interleaved_times_ms(fns)
+
+    def raw():
+        a = kernel_args(protos, coeffs, boxes, out, None, crop)   # binds the current stream
+        return lambda: launch(*a)
+
+    graph = {"kernel": sorted(graph_time_ms(raw) for _ in range(5)),
+             "matmul": sorted(graph_time_ms(lambda: fns["matmul"]) for _ in range(5))}
+    P = Hp * Wp
+    bytes_moved = 2 * (Bt * 32 * P + Bt * N * 32 + Bt * N * P) + 4 * Bt * N * 4
+    return {"times": times, "graph": graph, "bytes": bytes_moved, "flops": 2 * Bt * N * P * 32}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -930,7 +1072,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all(verbose=True)
     log(f"built {built} in {time.perf_counter() - t0:.1f} s")
-    if sorted(built) != ["decode_tail", "memory_readout", "proto_decode"]:
+    if sorted(built) != ["decode_tail", "memory_readout", "proto_decode"]:  # proto_decode holds both types
         raise AssertionError(f"expected three kernel sources, found {built}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -941,7 +1083,9 @@ def main() -> int:
     net = needle_network(device)
     readout_err = check_memory_readout(device)
     tail_err = check_decode_tail(net, device)
-    max_err = {"proto_decode": check_proto_decode(device),
+    proto_err = check_proto_decode(device)
+    max_err = {"proto_decode": proto_err[torch.float32],
+               "proto_decode_bf16": proto_err[BF16],
                "memory_readout": readout_err[torch.float32],
                "memory_readout_bf16": readout_err[torch.bfloat16],
                "decode_tail": tail_err[torch.float32],
@@ -1032,6 +1176,88 @@ def main() -> int:
     log(f"interleaved videos a (32 frames) and b (24): proto_decode launched {interleaved_launches} times "
         f"(7 shared batches); each equals its own run: "
         f"{json.dumps({n: check_pipeline_output(o, len(o.lens), h0, w0) for n, o in batched.items()})}")
+
+    # -- 3e. the bf16 detector: predict, held to the fp32 detector above --------------------------
+    det16 = YOLO("yolo10s-seg", nc=1, seed=0, dtype=torch.bfloat16)
+    proto_decode.launches = proto_decode.launches_bf16 = 0
+    res16_plain = det16.predict(list(frames), conf=conf, imgsz=imgsz, retina_masks=False)
+    res16_retina = det16.predict(list(frames), conf=conf, imgsz=imgsz, retina_masks=True)
+    torch.cuda.synchronize()
+    launches["proto_decode_bf16"] = proto_decode.launches_bf16
+    log(f"main path (predict, bf16): proto_decode_bf16 launched {proto_decode.launches_bf16} times, "
+        f"the fp32 kernel {proto_decode.launches}")
+    if proto_decode.launches_bf16 <= 0 or proto_decode.launches:
+        raise AssertionError("the bf16 detector must decode through proto_decode_bf16 and only through it")
+    for name, res16, res in (("non-retina", res16_plain, res_plain), ("retina", res16_retina, res_retina)):
+        counts, px = check_results(res16, n_frames, h0, w0)
+        log(f"bf16 {name}: detections per frame {counts} (fp32: {[len(r) for r in res]}), mask pixels {px}")
+    head = head_bf16_vs_fp32(det, det16, frames, imgsz)
+    log(f"bf16 vs fp32 detector head on the card, mean abs diff over every anchor: {json.dumps(head)} "
+        f"(limits: scores {DET_BF16_SCORE_MEAN}, boxes {DET_BF16_BOX_MEAN_PX} px)")
+    if not (head["probs"] <= DET_BF16_SCORE_MEAN and head["boxes"] <= DET_BF16_BOX_MEAN_PX):
+        raise AssertionError("the bf16 detector is farther from the fp32 one than its limits")
+
+    # -- 3f. the speed pipeline with the bf16 detector and classifier ---------------------------------
+    pipe16 = VideoSpeedPipeline(YOLO("yolo10s-seg", nc=1, seed=0, dtype=torch.bfloat16),
+                                ClassifierNet("efficientnet_b3", seed=0, dtype=torch.bfloat16),
+                                device_batch=8, imgsz=imgsz, crop_size=380)
+    pipe16_conf, gap16 = pipeline_conf(pipe16, clip)
+    proto_decode.launches = proto_decode.launches_bf16 = 0
+    pipe16_out = pipe16.process_frames(list(clip), fps=30.0, conf=pipe16_conf)
+    torch.cuda.synchronize()
+    launches["proto_decode_bf16"] += proto_decode.launches_bf16
+    summary16 = check_pipeline_output(pipe16_out, PIPE_FRAMES, h0, w0)
+    log(f"main path (speed pipeline, bf16 YOLOv10-S and B3, conf {pipe16_conf:.6f} in a gap of {gap16:.3g}): "
+        f"proto_decode_bf16 launched {proto_decode.launches_bf16} times for {n_batches} batches; {json.dumps(summary16)}")
+    if proto_decode.launches_bf16 != n_batches or proto_decode.launches:
+        raise AssertionError("the bf16 pipeline must launch proto_decode_bf16 once a batch")
+    # its device step against the fp32 step on the same batch and conf (the first batch)
+    s32, s16 = pipeline_step_numpy(pipe, clip[:8], 0.0), pipeline_step_numpy(pipe16, clip[:8], 0.0)
+    step_diff = {"conf": float(np.abs(s16["conf"] - s32["conf"]).mean()),
+                 "cls_prob": float(np.abs(s16["cls_prob"] - s32["cls_prob"]).mean())}
+    log(f"pipeline step bf16 vs fp32 on the card, first batch at conf 0, mean abs diff: {json.dumps(step_diff)} "
+        f"(limits: best score {STEP_BF16_CONF_MEAN}, classifier probability {CLS_BF16_PROB_MEAN})")
+    if not (step_diff["conf"] <= STEP_BF16_CONF_MEAN and step_diff["cls_prob"] <= CLS_BF16_PROB_MEAN):
+        raise AssertionError("the bf16 pipeline step is farther from the fp32 one than its limits")
+
+    # -- 3g. the bench's fused seg+track step at B 128 ---------------------------------------------------
+    from yolo_puncture_tpu_torch import bench as bm
+
+    mr.memory_readout.launches = dt.decode_tail.launches = 0
+    proto_decode.launches = proto_decode.launches_bf16 = 0
+    t = time.perf_counter()
+    bench_res, bench_details = bm.run_bench(BENCH_BATCH, BENCH_ITERS, imgsz, track=True,
+                                            trace_dir=os.path.join(ROOT, "build", "bench_trace"))
+    torch.cuda.synchronize()
+    n_steps = BENCH_ITERS + 2                                     # warm-up, timed, traced
+    bench_launches = (proto_decode.launches_bf16, mr.memory_readout.launches, dt.decode_tail.launches)
+    log(f"main path (bench, B {BENCH_BATCH} {h0}x{w0}, bf16 YOLOv10-S seg at {imgsz}^2 + bf16 tracker at 480x864, "
+        f"2 slots, window 4, exact): {n_steps} steps launched proto_decode_bf16 {bench_launches[0]}, memory_readout "
+        f"{bench_launches[1]}, decode_tail {bench_launches[2]} times (fp32 proto_decode {proto_decode.launches}); "
+        f"steps ms {[round(v, 3) for v in bench_details['steps_ms']]}, checksum {bench_details['chk']}; "
+        f"{time.perf_counter() - t:.1f} s with the build [{smi}]")
+    if bench_launches != (n_steps, n_steps * BENCH_BATCH // 4, n_steps) or proto_decode.launches:
+        raise AssertionError(f"the bench step launched {bench_launches}, not one decode, 32 readouts and one tail")
+    if not np.isfinite(bench_details["chk"]):
+        raise AssertionError("the bench's checksum is not finite")
+    launches["proto_decode_bf16"] += bench_launches[0]
+    launches["memory_readout_bf16"] += bench_launches[1]
+    launches["decode_tail_bf16"] += bench_launches[2]
+    print(smi, flush=True)
+    print(json.dumps(bench_res), flush=True)
+
+    # -- 3h. tracker quality on the shipped checkpoint: the protocol in fp32 and bf16 --------------------
+    from yolo_puncture_tpu_torch.track import quality
+
+    t = time.perf_counter()
+    mr.memory_readout.launches = 0
+    qual = quality.run_protocol()
+    log(f"tracker quality (16 clips x 32 frames at 240x432, tracker_propagation.msgpack): {json.dumps(qual)}; "
+        f"memory_readout launched {mr.memory_readout.launches} times; {time.perf_counter() - t:.1f} s [{smi}]")
+    for row, q in qual.items():
+        if not abs(q["mean_iou"] - q["jax_mean_iou"]) <= QUALITY_TOL:
+            raise AssertionError(f"tracker quality row {row}: {q['mean_iou']} is not within {QUALITY_TOL} of "
+                                 f"the JAX package's {q['jax_mean_iou']}")
 
     # -- 4. the same calls on the CPU ------------------------------------------------------
     det_cpu = YOLO("yolo10s-seg", nc=1, seed=0, device="cpu")
@@ -1272,6 +1498,56 @@ def main() -> int:
     stages = pipeline_stage_ms(pipe, clip, pipe_conf)
     log(f"pipeline stages ms over the clip ({n_batches} batches), synchronised: "
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} [{smi}]")
+
+    # -- 6f. proto_decode_bf16 at its launch shapes: the bench's, the pipeline's, predict's --------------
+    for Bt, N, crop, what in ((BENCH_BATCH, 1, False, "the bench's launch"), (8, 1, False, "the pipeline's launch"),
+                              (4, 32, True, "predict's launch")):
+        r = proto_decode_bf16_times(Bt, N, Hp, Wp, crop, device)
+        bound, _ = roofline_ms(f"proto_decode_bf16 B={Bt} N={N} ({what})", r["bytes"], r["flops"], FP32_FLOP_PER_S)
+        tk, tm = r["times"]["kernel"], r["times"]["matmul"]
+        order = ("every kernel repeat is below every matmul repeat" if tk[-1] < tm[0] else
+                 "every matmul repeat is below every kernel repeat" if tm[-1] < tk[0] else "the repeats overlap")
+        log(f"proto_decode_bf16 B={Bt} N={N} {Hp}x{Wp} soft crop={crop} ({what}), ms over 5 repeats of 200 launches "
+            f"from Python: " + "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}"
+                                         for n, t in r["times"].items())
+            + f"; {order}; replayed from a CUDA graph of 20: "
+            + "; ".join(f"{n} min {t[0]:.5f} median {t[2]:.5f} max {t[-1]:.5f}" for n, t in r["graph"].items())
+            + f"; {bound / tk[2]:.1%} of the bound launched, {bound / r['graph']['kernel'][2]:.1%} in a graph "
+            f"({r['bytes']} B, {r['flops']} FLOP) [{smi}]")
+        if Bt == BENCH_BATCH:
+            kernels.append(kernel_entry("proto_decode_bf16", "proto_decode",
+                                        "yolo_puncture_tpu/ops/pallas/proto_decode.py:23",
+                                        launches["proto_decode_bf16"], max_err["proto_decode_bf16"], tk[2],
+                                        r["times"]["plain"][2], tm[2], r["bytes"], r["flops"], FP32_FLOP_PER_S))
+
+    # -- 6g. bf16 against fp32 on the host clock: predict, the pipeline; the bench's stages -------------
+    for retina in (False, True):
+        t32 = host_ms(lambda: det.predict(list(frames), conf=conf, imgsz=imgsz, retina_masks=retina))
+        t16 = host_ms(lambda: det16.predict(list(frames), conf=conf, imgsz=imgsz, retina_masks=retina))
+        log(f"predict B={B} retina={retina}, ms (3 each, fp32 then bf16): fp32 {sorted(t32)[1]:.1f} ({t32}), "
+            f"bf16 {sorted(t16)[1]:.1f} ({t16}) [{smi}]")
+        stages16 = predict_stage_ms(det16, list(frames), conf=conf, imgsz=imgsz, retina_masks=retina)
+        log(f"predict bf16 stages ms, synchronised, retina={retina}: {json.dumps(stages16)}")
+    pipe16.process_frames(list(clip), fps=30.0, conf=pipe16_conf)  # warm-up
+    runs = {}
+    for name, p, c in (("fp32", pipe, pipe_conf), ("bf16", pipe16, pipe16_conf), ("bf16 ", pipe16, pipe16_conf),
+                       ("fp32 ", pipe, pipe_conf)):
+        runs.setdefault(name.strip(), []).extend(host_ms(lambda: p.process_frames(list(clip), fps=30.0, conf=c)))
+    log("pipeline 67 frames, in turns fp32, bf16, bf16, fp32 (3 calls each turn), frames/s: "
+        + "; ".join(f"{n} median {PIPE_FRAMES / np.median(v) * 1e3:.1f} ({[round(x, 1) for x in v]} ms)"
+                    for n, v in runs.items()) + f" [{smi}]")
+    stages16 = pipeline_stage_ms(pipe16, clip, pipe16_conf)
+    log(f"pipeline bf16 stages ms over the clip ({n_batches} batches), synchronised: "
+        f"{json.dumps({k: round(v, 3) for k, v in stages16.items()})} [{smi}]")
+    del pipe16, det16
+    model16, btracker = bm.bench_models(imgsz, True, device=device)
+    bframes = torch.from_numpy(bm.seeded_frames(BENCH_BATCH)).to(device)
+    bench_stage_ms(model16, btracker, bframes, imgsz)               # warm-up
+    for i in range(2):
+        stages = bench_stage_ms(model16, btracker, bframes, imgsz)
+        log(f"bench step B {BENCH_BATCH} stages ms, synchronised (run {i + 1}): "
+            f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} [{smi}]")
+    del model16, btracker, bframes
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

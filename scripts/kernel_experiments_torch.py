@@ -26,15 +26,16 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-LOAD = "if (live) v = __ldg(reinterpret_cast<const float4*>(pb + static_cast<size_t>(m) * P + p0));"
-STORE = "*reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);"
-NO_LOAD = (LOAD, "v = make_float4(0.01f * threadIdx.x, 0.02f * m, 0.03f, 0.04f);")
+LOAD = "load_vec(pb + static_cast<size_t>(m) * P + p0, pr[m]);"
+STORE = "store_vec(dst, v);"
+NO_LOAD = (LOAD, "{ pr[m][0] = 0.01f * threadIdx.x; pr[m][1] = 0.02f * m; pr[m][2] = 0.03f; pr[m][3] = 0.04f; }")
 NO_STORE = (STORE, "if (v[0] + v[3] == -123.f) " + STORE)
 # (name, kernel, source, [(old, new), ...], what it shows)
 VARIANTS = [
     ("as shipped", "proto", "proto_decode.cu", [], "the reference point"),
     ("ragged tail unwritten", "proto", "proto_decode.cu",
-     [("if (p0 + e < P) dst[e] = v[e];", "if (p0 + PX <= P) dst[e] = v[e];")], "must fail where P % 4 != 0"),
+     [("if (p0 + e < P) store_one(dst + e, v[e]);", "if (p0 + PX <= P) store_one(dst + e, v[e]);")],
+     "must fail where P % 4 != 0"),
     ("IEEE reciprocal", "proto", "proto_decode.cu",
      [("__fdividef(1.f, 1.f + __expf(-acc[e]))", "__frcp_rn(1.f + __expf(-acc[e]))")], "what rcp.approx buys"),
     ("no loads", "proto", "proto_decode.cu", [NO_LOAD], "time without the proto loads (results wrong)"),

@@ -4,6 +4,7 @@
     python3 scripts/profile_predict_torch.py [--batch 4] [--retina] [--out chiprun_out]
     python3 scripts/profile_predict_torch.py --tracker [--out DIR]
     python3 scripts/profile_predict_torch.py --pipeline [--out DIR]
+    python3 scripts/profile_predict_torch.py --bench [--batch 128] [--out DIR]
 
 Without ``--tracker``: one ``YOLO.predict`` in ``chip_smoke.py``'s configuration
 (YOLOv10-S seg, seeded random init, seeded 720×1280 frames, imgsz 640, conf
@@ -14,7 +15,9 @@ window of ``step_batch`` and 5 ``step`` calls.  With ``--pipeline``: one
 ``VideoSpeedPipeline.process_frames`` in ``chip_smoke.py``'s phase 3d
 configuration (67 needle frames of 720×1280, YOLOv10-S seg at 640²,
 EfficientNet-B3 on 380² crops, ``device_batch=8``, seeded random weights, the
-same ``conf``).  Each time two warm-up calls,
+same ``conf``).  With ``--bench``: one fused step of
+``python -m yolo_puncture_tpu_torch.bench`` (B 128 by default).  Each time two
+warm-up calls,
 then one call under ``torch.profiler``.  Prints one JSON object per profile:
 the call's wall time on the host clock, the summed device time of every kernel
 and copy (one stream, so the sum is the busy time), the busy share, and the ten
@@ -39,10 +42,11 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None, help="frames a call: 4 for predict, 128 for the bench")
     ap.add_argument("--retina", action="store_true")
     ap.add_argument("--tracker", action="store_true")
     ap.add_argument("--pipeline", action="store_true")
+    ap.add_argument("--bench", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -69,6 +73,9 @@ def main() -> int:
                                                     "ring_slots_valid": int(core.memory.valid.sum())})
         return 0
 
+    if args.bench:
+        return profile_bench(args.batch or 128, args.out, smi)
+
     if args.pipeline:
         from chip_smoke import PIPE_FRAMES, PIPE_KEY_FRAME, needle_clip, pipeline_conf
         from yolo_puncture_tpu_torch import YOLO
@@ -88,13 +95,34 @@ def main() -> int:
     from chip_smoke import seeded_frames
     from yolo_puncture_tpu_torch import YOLO
 
-    frames = list(seeded_frames(args.batch, 720, 1280, seed=0))
+    batch = args.batch or 4
+    frames = list(seeded_frames(batch, 720, 1280, seed=0))
     det = YOLO("yolo10s-seg", nc=1, seed=0)
     kw = dict(conf=0.018, imgsz=640, retina_masks=args.retina)
     for _ in range(2):
         det.predict(frames, **kw)
-    profile_call(lambda: det.predict(frames, **kw), f"predict_b{args.batch}{'_retina' if args.retina else ''}",
-                 args.out, smi, {"batch": args.batch, "retina": args.retina})
+    profile_call(lambda: det.predict(frames, **kw), f"predict_b{batch}{'_retina' if args.retina else ''}",
+                 args.out, smi, {"batch": batch, "retina": args.retina})
+    return 0
+
+
+def profile_bench(batch: int, out_dir: str, card: str) -> int:
+    """One fused bench step under the profiler, after two chained ones."""
+    from yolo_puncture_tpu_torch import bench as bm
+
+    model, (mem, track_fn) = bm.bench_models(640, True)
+    frames = torch.from_numpy(bm.seeded_frames(batch)).to("cuda")
+    step = bm.make_fused_step(model, track_fn, 640)
+    state = {"mem": mem, "chk": torch.zeros((), device="cuda")}
+
+    def steps(n):
+        for _ in range(n):
+            out, state["mem"] = step(state["mem"], frames, bm.CONF, state["chk"])
+            state["chk"] = out["chk"]
+        return float(state["chk"])
+
+    steps(2)
+    profile_call(lambda: steps(1), f"bench_b{batch}", out_dir, card, {"batch": batch, "frames_hw": bm.FRAME_HW})
     return 0
 
 
@@ -122,6 +150,7 @@ def profile_call(fn, label: str, out_dir: str, card: str, extra: dict) -> None:
     print(json.dumps({
         "card": card, **extra, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+        "device_events": sum(n for _, _, n in by_name),
         "top_kernels": [{"name": k[:80], "ms": us / 1e3, "count": n} for us, k, n in by_name[:10]],
         "trace": os.path.relpath(trace, ROOT),
     }), flush=True)

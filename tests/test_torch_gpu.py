@@ -49,13 +49,19 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PROTO_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_proto_decode_kernel_matches_plain_version(cuda, case):
-    """The cases, the inputs and the limits are ``chip_smoke.py``'s: soft masks within
-    1e-6, binary masks equal outside 1e-6 around the threshold; pixel counts that are
-    no multiple of the kernel's 4-pixel vectors or of its blocks, 1 to 70 instances,
-    box edges on vector boundaries, thresholds taken as a logit and as a sigmoid."""
-    before = proto_decode.launches
+    """The cases, the inputs and the limits are ``chip_smoke.py``'s: fp32 soft masks
+    within 1e-6, binary masks equal outside 1e-6 around the threshold; bf16 (the
+    ``proto_decode_bf16`` kernel: the bf16 detector's, pipeline's and bench's launches)
+    within one bf16 ulp, binary masks equal except where the soft values differ;
+    pixel counts that are no multiple of the kernel's 4-pixel vectors or of its
+    blocks, 1 to 70 instances, box edges on vector boundaries, thresholds taken as a
+    logit and as a sigmoid.  Each call of the wrapper counts one launch."""
+    bf16 = len(case) > 7 and case[7] == torch.bfloat16
+    calls = 2 if bf16 and case[4] is not None else 1   # a bf16 threshold case also decodes the soft masks
+    before = (proto_decode.launches, proto_decode.launches_bf16)
     check_proto_decode_case(case, cuda, seed=7)
-    assert proto_decode.launches == before + 1
+    assert (proto_decode.launches, proto_decode.launches_bf16) == (before[0] + calls * (not bf16),
+                                                                   before[1] + calls * bf16)
 
 
 @pytest.mark.gpu
@@ -68,6 +74,10 @@ def test_proto_decode_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         proto_decode(p.transpose(2, 3), c, b)
     with pytest.raises(ValueError):
         proto_decode(torch.zeros(1, 16, 8, 8, device=cuda), torch.zeros(1, 2, 16, device=cuda), b)
+    with pytest.raises(TypeError):                      # bf16 protos take bf16 coefficients: no fp32 copy
+        proto_decode(p.bfloat16(), c, b)
+    with pytest.raises(TypeError):                      # boxes stay fp32
+        proto_decode(p.bfloat16(), c.bfloat16(), b.bfloat16())
 
 
 @pytest.mark.gpu

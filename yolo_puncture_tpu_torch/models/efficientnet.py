@@ -10,7 +10,10 @@ variables across.  As there: BatchNorm eps 1e-3, symmetric ``k // 2`` padding
 (also at stride 2), and a squeeze-excite width of a quarter of the block's input.
 
 ``EfficientNet.forward`` takes NCHW images (timm's layout) and returns logits;
-``preprocess_classifier`` turns RGB uint8 NHWC crops into that input.
+``preprocess_classifier`` turns RGB uint8 NHWC crops into that input.  A model
+built with ``dtype=torch.bfloat16`` computes as the JAX package's
+``dtype=bfloat16`` does (``nn/common.py to_compute_dtype``: bf16 convolutions
+and head, fp32 BatchNorm statistics with bf16 output).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_puncture_tpu_torch.nn.common import to_compute_dtype
 from yolo_puncture_tpu_torch.ops.masks import _linear_weight_mat
 from yolo_puncture_tpu_torch.registry import register_model
 
@@ -129,8 +133,10 @@ class EfficientNet(nn.Module):
     """EfficientNet-``variant`` with a ``num_classes`` linear head (inference:
     BatchNorm on running statistics, no dropout)."""
 
-    def __init__(self, variant: str = "b3", num_classes: int = 2, in_chans: int = 3):
+    def __init__(self, variant: str = "b3", num_classes: int = 2, in_chans: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         width, depth, _, _ = _CFG[variant]
         stem = round_filters(32, width)
         self.conv_stem = _conv(in_chans, stem, 3, 2)
@@ -150,6 +156,7 @@ class EfficientNet(nn.Module):
         self.conv_head = _conv(cin, head, 1)
         self.bn2 = _bn(head)
         self.classifier = nn.Linear(head, num_classes)
+        to_compute_dtype(self, dtype)
         self.eval()
 
     @torch.no_grad()
@@ -157,7 +164,9 @@ class EfficientNet(nn.Module):
         """Seeded random init: LeCun-normal conv and linear weights, zero biases,
         and BatchNorm running statistics from one train-mode forward of seeded
         noise, so that every layer of a random model stays near unit scale and
-        its two logits differ from frame to frame."""
+        its two logits differ from frame to frame.  The init runs in fp32 whatever
+        ``dtype`` is, so that a bf16 model holds the fp32 model's weights rounded."""
+        to_compute_dtype(self, torch.float32)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 w = m.weight
@@ -170,21 +179,27 @@ class EfficientNet(nn.Module):
             m.momentum = 1.0  # running statistics := this batch's statistics
         images = torch.rand((4, self.conv_stem.in_channels, 96, 96), generator=generator)
         self.train()
-        self(images.to(self.classifier.weight.device))
+        self._forward(images.to(self.classifier.weight.device))
         self.eval()
         for m in bns:
             m.momentum = 0.1
+        to_compute_dtype(self, self.dtype)
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(x.to(self.dtype))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.silu(self.bn1(self.conv_stem(x)))
         y = self.blocks(y)
         y = F.silu(self.bn2(self.conv_head(y)))
         return self.classifier(y.mean(dim=(2, 3)))
 
 
-def preprocess_classifier(images_u8: torch.Tensor, size: int = 380) -> torch.Tensor:
-    """RGB uint8 (B, H, W, 3) → ImageNet-normalised fp32 (B, 3, size, size).
+def preprocess_classifier(images_u8: torch.Tensor, size: int = 380,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """RGB uint8 (B, H, W, 3) → ImageNet-normalised (B, 3, size, size), computed
+    in fp32 and cast to ``dtype`` at the end, as the JAX package does.
 
     A crop that is not size² is resized with the JAX package's
     ``jax.image.resize(method="bilinear")``, which is the antialiased
@@ -199,11 +214,11 @@ def preprocess_classifier(images_u8: torch.Tensor, size: int = 380) -> torch.Ten
         x = torch.einsum("bHwc,wW->bHWc", x, ww)
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
+    return ((x - mean) / std).to(dtype).permute(0, 3, 1, 2).contiguous()
 
 
 for _v in _CFG:
-    def _ctor(num_classes=2, in_chans=3, _v=_v, **kw):
-        return EfficientNet(variant=_v, num_classes=num_classes, in_chans=in_chans)
+    def _ctor(num_classes=2, in_chans=3, dtype=torch.float32, _v=_v, **kw):
+        return EfficientNet(variant=_v, num_classes=num_classes, in_chans=in_chans, dtype=dtype)
 
     register_model(_ctor, name=f"efficientnet_{_v}")

@@ -5,9 +5,11 @@ its architecture tables (``SCALES``, ``V8_SPEC``, ``V11_SPEC``, ``_v10_spec``,
 ``make_divisible``).  ``YOLOModel.model`` is a ModuleList indexed like
 ultralytics' ``DetectionModel.model``, so state-dict keys are ``model.{i}.…``.
 
-``forward`` takes NHWC images in [0, 1] (the JAX package's layout), runs NCHW,
-and returns the head's dict in the JAX layouts: ``boxes`` (B, A, 4), ``probs``
-(B, A, nc), and for segmentation ``coeffs`` (B, A, nm), ``proto`` (B, Hp, Wp, nm).
+``forward`` takes NHWC images in [0, 1] (the JAX package's layout), runs NCHW
+in the model's ``dtype`` (fp32, or bf16 as the JAX package's
+``dtype=bfloat16``: ``nn/common.py to_compute_dtype``), and returns the head's
+dict in the JAX layouts: ``boxes`` (B, A, 4), ``probs`` (B, A, nc), and for
+segmentation ``coeffs`` (B, A, nm), ``proto`` (B, Hp, Wp, nm).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from yolo_puncture_tpu_torch.nn.common import (
     PSA,
     SCDown,
     SPPF,
+    to_compute_dtype,
     upsample_nearest_2x,
 )
 from yolo_puncture_tpu_torch.nn.heads import Detect, Segment
@@ -172,12 +175,15 @@ def _spec(version: str, scale: str):
 
 class YOLOModel(nn.Module):
     """Spec-driven YOLO graph for ``version`` 'v8' | 'v10' | 'v11', ``task``
-    'detect' | 'segment'."""
+    'detect' | 'segment', computing in ``dtype`` (fp32 or bf16).  The head's
+    boxes and class scores come out fp32 whatever ``dtype`` is (the DFL softmax,
+    the fp32 anchors and strides, the sigmoid of fp32 class logits); its mask
+    coefficients and prototypes in ``dtype``."""
 
     def __init__(self, version: str = "v10", scale: str = "s", nc: int = 80,
-                 task: str = "segment"):
+                 task: str = "segment", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.version, self.scale, self.nc, self.task = version, scale, nc, task
+        self.version, self.scale, self.nc, self.task, self.dtype = version, scale, nc, task, dtype
         depth, width, max_ch = SCALES[version][scale]
         self.spec = _spec(version, scale)
 
@@ -226,6 +232,7 @@ class YOLOModel(nn.Module):
             ch.append(c2)
         self.model = nn.ModuleList(layers)
         self._needed = {i for frm, *_ in self.spec if isinstance(frm, tuple) for i in frm if i != -1}
+        to_compute_dtype(self, dtype)
         self.eval()
 
     @torch.no_grad()
@@ -235,7 +242,10 @@ class YOLOModel(nn.Module):
         train-mode forward of seeded noise.  With identity statistics the
         activations shrink layer by layer until the head sees zeros (every score
         equals the class bias, every mask is empty); batch statistics keep each
-        layer near unit scale, so a random model gives varied scores and masks."""
+        layer near unit scale, so a random model gives varied scores and masks.
+        The init runs in fp32 whatever ``dtype`` is, so that a bf16 model holds
+        the fp32 model's weights rounded to bf16."""
+        to_compute_dtype(self, torch.float32)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 w = m.weight
@@ -257,13 +267,17 @@ class YOLOModel(nn.Module):
             F.interpolate(torch.rand((2, 3, 8, 8), generator=g), size=(256, 256), mode="nearest"),
         ])
         self.train()
-        self(images.permute(0, 2, 3, 1).to(next(self.parameters()).device))
+        self._forward(images.permute(0, 2, 3, 1).to(next(self.parameters()).device))
         self.eval()
         for m in bns:
             m.momentum = 0.03
+        to_compute_dtype(self, self.dtype)
         return self
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._forward(x.to(self.dtype))
+
+    def _forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC → NCHW
         saved: Dict[int, torch.Tensor] = {}
         out: Optional[Dict[str, torch.Tensor]] = None

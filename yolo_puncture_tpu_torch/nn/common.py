@@ -5,6 +5,12 @@ follow the ultralytics state-dict layout (``cv1.conv.weight``, ``m.0.cv2.bn``,
 ``cv1.2.conv1.conv`` …), so checkpoints and the weight bridge load by name.
 Padding is the explicit symmetric ``k // 2`` (``autopad``); BatchNorm uses
 ultralytics' eps 1e-3.  Inference only: BatchNorm runs on its running statistics.
+
+A bf16 model (``to_compute_dtype``) is the JAX package's ``dtype=bfloat16``:
+convolutions and linear layers compute in bf16 on bf16 weights (flax keeps fp32
+parameters and rounds them to bf16 at each use, which gives the same values),
+and BatchNorm keeps fp32 statistics and affine parameters, normalises a bf16
+input in fp32 and rounds its output to bf16 (flax ``BatchNorm(dtype=bf16)``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,19 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+
+
+def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every parameter outside BatchNorm to ``dtype``; BatchNorm layers keep
+    fp32 statistics and affine parameters, and PyTorch's BatchNorm then computes
+    in fp32 on an input of another type and returns that type.  ``model.to(dtype)``
+    would round the statistics too."""
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return module
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:

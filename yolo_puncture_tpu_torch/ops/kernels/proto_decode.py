@@ -4,7 +4,10 @@ Counterpart of ``yolo_puncture_tpu/ops/pallas/proto_decode.py`` (``_kernel`` /
 ``proto_decode_pallas``).  Per frame, instance and proto pixel it computes
 ``sigmoid(coeffs @ protos)``, zeroes pixels outside the box (half-open in proto
 pixels: ``x1 <= px < x2``, ``y1 <= py < y2``) when ``crop``, and binarises with
-``> threshold`` when a threshold is given.  Output is fp32 ``(B, N, Hp, Wp)``.
+``> threshold`` when a threshold is given.  Output ``(B, N, Hp, Wp)`` in the
+protos' type: fp32, or bf16 from bf16 protos and coefficients (the products
+and the sigmoid in fp32, the sigmoid rounded to bf16 before the crop and the
+threshold, as the JAX package's ``decode_masks`` orders them for a bf16 model).
 
 The kernel lives in ``csrc/proto_decode.cu``; its header states the bound
 (memory: 3.28 MB read + 3.28 MB written per serving frame, about 2 us at
@@ -13,7 +16,8 @@ float4 coefficient broadcasts).  For a threshold inside (0, 1) the kernel does
 not take the sigmoid at all: ``sigmoid(x) > t`` is ``x > logit(t)``, and
 ``threshold_logit`` computes the right-hand side once on the host in float64.
 On a CPU tensor the wrapper runs ``proto_decode_reference``; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises: bf16 operands go to the bf16 kernel
+(``proto_decode_bf16``), never through an fp32 copy.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ def proto_decode_reference(
     crop: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch version.  protos (B, nm, Hp, Wp); coeffs (B, N, nm);
-    boxes (B, N, 4) xyxy in proto pixels → (B, N, Hp, Wp) fp32."""
+    boxes (B, N, 4) xyxy in proto pixels → (B, N, Hp, Wp) in the protos' type
+    (fp32 or bf16): fp32 products and sigmoid, rounded to that type, then the
+    crop and the threshold."""
     B, nm, Hp, Wp = protos.shape
     logits = torch.matmul(coeffs.float(), protos.float().reshape(B, nm, Hp * Wp))
-    masks = torch.sigmoid(logits).reshape(B, -1, Hp, Wp)
+    masks = torch.sigmoid(logits).reshape(B, -1, Hp, Wp).to(protos.dtype)
     if crop:
         masks = masks * box_inside(boxes.float(), Hp, Wp).to(masks.dtype)
     if threshold is not None:
@@ -69,22 +75,30 @@ def threshold_logit(threshold: Optional[float]) -> Optional[float]:
 
 
 @lru_cache(maxsize=None)
-def kernel_fn():
-    """The C entry point ``proto_decode_f32`` (built on first use), argtypes set."""
-    fn = _build.load("proto_decode").proto_decode_f32
+def kernel_fn(dtype: torch.dtype = torch.float32):
+    """The C entry point for ``dtype``, ``proto_decode_f32`` or
+    ``proto_decode_bf16`` (built on first use), argtypes set."""
+    lib = _build.load("proto_decode")
+    fn = {torch.float32: lib.proto_decode_f32, torch.bfloat16: lib.proto_decode_bf16}[dtype]
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def kernel_args(protos, coeffs, boxes, out, threshold, crop):
-    """Arguments of ``kernel_fn()`` for checked tensors, on the current stream."""
+    """Arguments of ``kernel_fn(protos.dtype)`` for checked tensors, on the
+    current stream.  A bf16 mask is thresholded after its sigmoid is rounded,
+    so the bf16 kernel never compares logits, and against the threshold rounded
+    to bf16, as ``bf16_tensor > threshold`` rounds a Python float in PyTorch and
+    in JAX."""
     B, nm, Hp, Wp = protos.shape
-    logit = threshold_logit(threshold)
+    bf16 = protos.dtype == torch.bfloat16
+    logit = None if bf16 else threshold_logit(threshold)
     if threshold is None:
         mode, level = MODE_SOFT, 0.0
     elif logit is None:
-        mode, level = MODE_SIGMOID_THRESHOLD, float(threshold)
+        level = float(torch.tensor(threshold, dtype=torch.bfloat16)) if bf16 else float(threshold)
+        mode = MODE_SIGMOID_THRESHOLD
     else:
         mode, level = MODE_LOGIT_THRESHOLD, logit
     return (
@@ -116,19 +130,25 @@ def proto_decode(
     threshold: Optional[float] = None,
     crop: bool = True,
 ) -> torch.Tensor:
-    """protos (B, nm, Hp, Wp) channel-first and contiguous; coeffs (B, N, nm);
-    boxes (B, N, 4) xyxy in proto pixels.  Returns (B, N, Hp, Wp) fp32.
+    """protos (B, nm, Hp, Wp) channel-first and contiguous; coeffs (B, N, nm) of
+    the protos' type; boxes (B, N, 4) fp32 xyxy in proto pixels.  Returns
+    (B, N, Hp, Wp) in the protos' type, fp32 or bf16.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (fp32,
-    contiguous, nm == 32) and anything else raises."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel for their
+    type (contiguous, nm == 32; ``launches`` counts fp32 launches and
+    ``launches_bf16`` bf16 ones) and anything else raises."""
     _check(protos, coeffs, boxes)
     if protos.device.type == "cpu":
         return proto_decode_reference(protos, coeffs, boxes, threshold, crop)
     if protos.device.type != "cuda":
         raise ValueError(f"proto_decode runs on cpu or cuda, not {protos.device}")
-    for name, t in (("protos", protos), ("coeffs", coeffs), ("boxes", boxes)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"proto_decode kernel takes fp32 {name}, got {t.dtype}")
+    dtype = protos.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"proto_decode kernel takes fp32 or bf16 protos, got {dtype}")
+    for name, t, want in (("protos", protos, dtype), ("coeffs", coeffs, dtype), ("boxes", boxes, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"proto_decode kernel takes {str(want)[6:]} {name} with {str(dtype)[6:]} protos, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"proto_decode kernel takes contiguous {name}")
     B, nm, Hp, Wp = protos.shape
@@ -137,15 +157,19 @@ def proto_decode(
         raise ValueError(f"proto_decode kernel is compiled for nm == 32, got {nm}")
     if B > 65535:
         raise ValueError(f"proto_decode kernel takes at most 65535 frames, got {B}")
-    out = torch.empty((B, N, Hp, Wp), dtype=torch.float32, device=protos.device)
+    out = torch.empty((B, N, Hp, Wp), dtype=dtype, device=protos.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(protos.device):
-        rc = kernel_fn()(*kernel_args(protos, coeffs, boxes, out, threshold, crop))
+        rc = kernel_fn(dtype)(*kernel_args(protos, coeffs, boxes, out, threshold, crop))
     if rc != 0:
         raise RuntimeError(f"proto_decode kernel launch failed: {_build.error_string('proto_decode', rc)}")
-    proto_decode.launches += 1
+    if dtype == torch.float32:
+        proto_decode.launches += 1
+    else:
+        proto_decode.launches_bf16 += 1
     return out
 
 
-proto_decode.launches = 0  # kernel launches since the last reset
+proto_decode.launches = 0       # fp32 kernel launches since the last reset
+proto_decode.launches_bf16 = 0  # bf16 kernel launches since the last reset

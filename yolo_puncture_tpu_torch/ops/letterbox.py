@@ -4,7 +4,11 @@ Counterpart of ``yolo_puncture_tpu/ops/letterbox.py``: ultralytics ``LetterBox``
 (aspect-preserving resize, centred pad to a square with value 114) with cv2
 ``INTER_LINEAR`` arithmetic, so uint8 frames give the same pixels as the JAX
 package and the reference's host letterbox.  Frames go in as (B, H, W, C) and
-come out as (B, new, new, C) float in [0, 1], the JAX package's layout.
+come out as (B, new, new, C) float in [0, 1], the JAX package's layout, in the
+target ``dtype``.  As the JAX package computes it, a bf16 letterbox is bf16
+arithmetic, not a cast of the fp32 result: tap weights are rounded to bf16,
+products summed in fp32, and intermediates rounded to bf16 where the JAX
+package rounds them.
 """
 
 from __future__ import annotations
@@ -14,6 +18,11 @@ from typing import Tuple
 import torch
 
 from yolo_puncture_tpu_torch.ops.masks import _interp_matrix
+
+
+# output lanes of a block of the JAX package's lane-mix contraction: where new_w·C
+# is a multiple of it, it mixes the W taps before the H taps
+_MIX_OUT_BLOCK = 384
 
 
 def _cv2_linear_taps(n: int):
@@ -47,40 +56,60 @@ def letterbox(
     pad_value: float = 114.0 / 255.0,
     scaleup: bool = True,
     bgr_to_rgb: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
     """Letterbox a batch of frames.
 
     frames: (B, H, W, C) uint8, or float in [0, 1].  Returns (images
-    (B, new, new, C) fp32 in [0, 1], ratio r, (pad_left, pad_top)).  An exact
-    integer downscale (720p → 640²: n = 2; 1080p: n = 3) applies cv2's 1-2 taps
-    per axis; other ratios use cv2's half-pixel 2-tap interpolation as two matmuls.
+    (B, new, new, C) ``dtype`` in [0, 1], ratio r, (pad_left, pad_top)).  An
+    exact integer downscale (720p → 640²: n = 2; 1080p: n = 3) applies cv2's 1-2
+    taps per axis; other ratios use cv2's half-pixel 2-tap interpolation as two
+    matmuls.
     """
     B, H, W, C = frames.shape
     r, (new_w, new_h), (left, top) = letterbox_params(H, W, new_shape, scaleup)
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
-    x = frames.float()
     n = int(round(1.0 / r)) if r > 0 else 0
     exact_int_down = (
         r < 1.0 and n >= 1 and H == new_h * n and W == new_w * n and abs(r * n - 1.0) < 1e-9
     )
     if (new_h, new_w) == (H, W):
-        x = x * scale
+        x = frames.to(dtype)
+        x = x / 255.0 if frames.dtype == torch.uint8 else x
     elif exact_int_down:
-        x = x.reshape(B, new_h, n, new_w, n, C)
+        x = frames.reshape(B, new_h, n, new_w, n, C)
         taps = _cv2_linear_taps(n)
-        cols = sum(wt * scale * x[:, :, :, :, d] for d, wt in taps)   # W taps, /255 folded in
-        x = sum(wt * cols[:, :, d] for d, wt in taps)                  # H taps
+        # the W taps carry 1/255 and are rounded to ``dtype`` (the JAX package's
+        # lane-mix matrix); its two orders of the taps are followed, since in bf16
+        # they round differently
+        wt_w = [(d, _round(wt * scale, dtype)) for d, wt in taps]
+        if (new_w * C) % _MIX_OUT_BLOCK == 0:
+            # W taps first, then H taps, all summed in fp32
+            x = sum(wh * sum(ww * x[:, :, dh, :, dw].float() for dw, ww in wt_w) for dh, wh in taps)
+        else:
+            # H taps first in ``dtype``, then the W taps summed in fp32
+            rows = sum(wh * x[:, :, dh].to(dtype) for dh, wh in taps)
+            x = sum(ww * rows[:, :, :, dw].float() for dw, ww in wt_w)
+        x = x.to(dtype)
     else:
-        mh = torch.from_numpy(_interp_matrix(H, new_h)).to(x.device)
-        mw = torch.from_numpy(_interp_matrix(W, new_w)).to(x.device)
-        x = x * scale
-        x = torch.einsum("bhwc,hH->bHwc", x, mh)
-        x = torch.einsum("bHwc,wW->bHWc", x, mw)
+        mh = torch.from_numpy(_interp_matrix(H, new_h)).to(device=frames.device, dtype=dtype)
+        mw = torch.from_numpy(_interp_matrix(W, new_w)).to(device=frames.device, dtype=dtype)
+        x = frames.to(dtype)
+        x = x / 255.0 if frames.dtype == torch.uint8 else x
+        # two contractions, each summed in fp32 and rounded to ``dtype``
+        x = torch.einsum("bhwc,hH->bHwc", x, mh).to(dtype)
+        x = torch.einsum("bHwc,wW->bHWc", x, mw).to(dtype)
     if bgr_to_rgb:
         x = x.flip(-1)
-    out = torch.full((B, new_shape, new_shape, C), pad_value, dtype=torch.float32, device=x.device)
+    out = torch.full((B, new_shape, new_shape, C), pad_value, dtype=torch.float32, device=x.device).to(dtype)
     out[:, top:top + new_h, left:left + new_w] = x
     return out, r, (left, top)
+
+
+def _round(v: float, dtype: torch.dtype) -> float:
+    """``v`` as fp32 rounded to ``dtype`` (a weight of the JAX package's fp32
+    numpy matrices cast to the compute type)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
 
 
 def scale_boxes(boxes: torch.Tensor, r: float, pad: Tuple[int, int],

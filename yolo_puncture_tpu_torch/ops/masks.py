@@ -43,17 +43,39 @@ def interp_matrix_on(src: int, dst: int, window, device: torch.device, dtype: to
     return torch.from_numpy(_interp_matrix(src, dst, window)).to(device=device, dtype=dtype)
 
 
+def _first_axis(h: int, w: int, H: int, W: int) -> str:
+    """Which axis a separable resample of (…, h, w) to (…, H, W) contracts first:
+    the order of least multiply-adds, "h" on a tie.  It is the path the JAX
+    package's einsums take (opt_einsum's 'optimal' path for three operands),
+    which matters where the intermediate is rounded to bf16."""
+    return "h" if H * h * w + H * w * W <= h * w * W + H * h * W else "w"
+
+
+def _resample(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
+    """(…, h, w) → (…, H, W) through mh (h, H) and mw (w, W) in x's type, each
+    contraction summed in fp32 and rounded to that type."""
+    h, w = x.shape[-2:]
+    if _first_axis(h, w, mh.shape[1], mw.shape[1]) == "h":
+        return torch.matmul(torch.matmul(mh.T, x), mw)
+    return torch.matmul(mh.T, torch.matmul(x, mw))
+
+
 def upsample_bilinear_matmul(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """(…, h, w) → (…, H, W) bilinear upsample as two matmuls."""
+    """(…, h, w) → (…, H, W) bilinear upsample as two matmuls, in x's type."""
     h, w = x.shape[-2:]
     mh = interp_matrix_on(h, H, None, x.device, x.dtype)
     mw = interp_matrix_on(w, W, None, x.device, x.dtype)
-    return torch.matmul(mh.T, torch.matmul(x, mw))
+    if x.dtype == torch.float32:
+        return torch.matmul(mh.T, torch.matmul(x, mw))
+    # the JAX package contracts h first and rounds in between
+    return torch.matmul(torch.matmul(mh.T, x), mw)
 
 
 def crop_masks(masks: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """Zero mask pixels outside each instance's box.
-    masks (B, N, H, W); boxes (B, N, 4) xyxy in mask pixels, half-open."""
+    masks (B, N, H, W); boxes (B, N, 4) xyxy in mask pixels, half-open; the
+    comparison in the masks' type (bf16 pixel coordinates above 256 are rounded,
+    as ``jnp.arange(H, dtype=bfloat16)`` rounds them)."""
     H, W = masks.shape[-2:]
     return masks * box_inside(boxes.to(masks.dtype), H, W).to(masks.dtype)
 
@@ -67,7 +89,7 @@ def decode_masks(
     threshold: Optional[float] = 0.5,
     crop: bool = True,
 ) -> torch.Tensor:
-    """Decode instance masks, fp32.
+    """Decode instance masks, in bf16 for bf16 prototypes and fp32 otherwise.
 
     protos (B, Hp, Wp, nm) (the head's layout); coeffs (B, N, nm); boxes
     (B, N, 4) xyxy in letterboxed-image pixels; img_hw the letterboxed size.
@@ -78,18 +100,22 @@ def decode_masks(
     """
     B, Hp, Wp, nm = protos.shape
     H, W = img_hw
-    protos_cf = protos.permute(0, 3, 1, 2).float().contiguous()  # a view of the head's NCHW bank
-    coeffs = coeffs.float().contiguous()
-    boxes = boxes.float().contiguous()  # a slice of the selected slots is strided
+    dtype = torch.bfloat16 if protos.dtype == torch.bfloat16 else torch.float32
+    protos_cf = protos.permute(0, 3, 1, 2).to(dtype).contiguous()  # a view of the head's NCHW bank
+    coeffs = coeffs.to(dtype).contiguous()
+    # bf16 boxes are rounded as the reference casts them; the kernel takes them as fp32
+    # (and contiguous: a slice of the selected slots is strided)
+    boxes = boxes.to(dtype)
     if upsample and (Hp, Wp) != (H, W):
-        masks = upsample_bilinear_matmul(proto_decode(protos_cf, coeffs, boxes, None, crop=False), H, W)
+        masks = upsample_bilinear_matmul(proto_decode(protos_cf, coeffs, boxes.float().contiguous(), None,
+                                                      crop=False), H, W)
         if crop:
             masks = crop_masks(masks, boxes)
         if threshold is not None:
-            masks = (masks > threshold).float()
+            masks = (masks > threshold).to(dtype)
         return masks
     scale = boxes.new_tensor([Wp / W, Hp / H, Wp / W, Hp / H])
-    return proto_decode(protos_cf, coeffs, (boxes * scale).contiguous(), threshold, crop)
+    return proto_decode(protos_cf, coeffs, (boxes * scale).float().contiguous(), threshold, crop)
 
 
 @lru_cache(maxsize=16)
@@ -124,7 +150,9 @@ def paste_masks_to_original(
     original scale and ``pad`` (left, top) at mask resolution, both possibly
     fractional (the stride-4 proto path passes r/4 and pad/4; rounding the pad
     would shift masks by up to 2 original pixels).  Output centre (i + 0.5)
-    reads mask coordinate (i + 0.5)·r + pad.  Returns (B, N, h0, w0) fp32."""
+    reads mask coordinate (i + 0.5)·r + pad.  Returns (B, N, h0, w0) in the
+    masks' type when it is bf16 (the weights rounded to bf16, as
+    ``jax.image.scale_and_translate`` samples a bf16 input), fp32 otherwise."""
     H, W = masks.shape[-2:]
     left, top = pad
     h0, w0 = orig_hw
@@ -132,4 +160,6 @@ def paste_masks_to_original(
     s = float(np.float32(1.0 / r))
     wh = _linear_weight_mat(H, h0, s, float(np.float32(-top / r)), masks.device)
     ww = _linear_weight_mat(W, w0, s, float(np.float32(-left / r)), masks.device)
+    if masks.dtype == torch.bfloat16:
+        return _resample(masks, wh.to(masks.dtype), ww.to(masks.dtype))
     return torch.matmul(wh.T, torch.matmul(masks.float(), ww))

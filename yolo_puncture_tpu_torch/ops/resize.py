@@ -1,4 +1,4 @@
-"""cv2-free image resizes with cv2's arithmetic.
+"""Image resizes: cv2's arithmetic without cv2, and ``jax.image.resize``'s.
 
 The JAX package's tracker resizes frames with ``cv2.resize(INTER_LINEAR)`` and
 id masks with ``cv2.resize(INTER_NEAREST)`` on the host.  The port runs where
@@ -13,6 +13,10 @@ cv2 may be missing, and gives the same pixels:
     vertical taps clamp their row.  An exact 2× shrink on both axes is cv2's
     2×2 box average, ``(a + b + c + d + 2) >> 2``.
   * ``resize_nearest``: source index ``min(floor(d·scale), src − 1)``.
+
+The JAX package's bench and ``build_bench_tracker`` feed the tracker through
+``jax.image.resize(frames_bf16, (B, 480, 864, 3), "bilinear")`` instead, a
+different function: ``resize_bilinear`` is its counterpart.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from yolo_puncture_tpu_torch.ops.masks import _linear_weight_mat, _resample
 
 _COEF_BITS = 11
 _COEF_ONE = 1 << _COEF_BITS
@@ -78,3 +84,19 @@ def resize_nearest(a: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / H))).astype(np.int64), H - 1)
     xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / W))).astype(np.int64), W - 1)
     return a[ys[:, None], xs[None, :]]
+
+
+def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(images, (B, h, w, C), "bilinear")`` of NHWC float
+    images, in their own type.  That is ``scale_and_translate``'s antialiased
+    triangle (widened by the shrink factor when downscaling: 720 → 480 averages
+    over 1.5 source pixels, unlike cv2's INTER_LINEAR), with the weights of
+    ``ops/masks.py _linear_weight_mat`` rounded to the images' type, and the two
+    contractions each summed in fp32 and rounded to that type, in the order
+    XLA's einsum takes them.  (B, H, W, C) → (B, h, w, C), a channels-last view
+    of a (B, C, h, w) tensor."""
+    B, H, W, C = images.shape
+    h, w = out_hw
+    wh = _linear_weight_mat(H, h, float(np.float32(h / H)), 0.0, images.device).to(images.dtype)
+    ww = _linear_weight_mat(W, w, float(np.float32(w / W)), 0.0, images.device).to(images.dtype)
+    return _resample(images.permute(0, 3, 1, 2), wh, ww).permute(0, 2, 3, 1)

@@ -12,6 +12,11 @@ Counterpart of ``yolo_puncture_tpu/pipeline/runner.py``.  Per batch of
   original frames around the box (``utils/transform.py crop_frame`` semantics)
   → classifier → fp32 softmax.
 
+The step computes in its models' types, as the JAX package's follows
+``det_model.dtype`` and ``cls_net.model.dtype``: a bf16 detector gets a bf16
+letterbox and decodes its masks in bf16, a bf16 classifier gets bf16 input.
+There is no ``dtype`` argument (the JAX pipeline's is stored and never read).
+
 The host then runs, per video: the fallback chain (a frame without a detection
 takes the last box and the last length), the largest contour of each mask →
 original coordinates → ``min_rect_len``, the classifier again on crops around
@@ -131,7 +136,7 @@ class VideoSpeedPipeline:
         tensor or None}, ratio, (pad_left, pad_top))."""
         h0, w0 = frames.shape[1:3]
         det = self.detector
-        imgs, r, pad = letterbox(frames, self.imgsz, bgr_to_rgb=True)
+        imgs, r, pad = letterbox(frames, self.imgsz, bgr_to_rgb=True, dtype=det.model.dtype)
         out = det.model(imgs)
         sel = select_detections(out, nms_free=det.version == "v10", conf_thres=conf, iou_thres=0.7, max_det=8)
         # slot 0 holds the best score: the reference's argmax over the detections

@@ -10,7 +10,10 @@ frame coordinates.  Per batch of same-shape frames, on the device:
   the original frame (crop at original resolution for retina) → threshold
 
 PyTorch runs eagerly, so there is no per-geometry compiled-program cache.  The
-model runs on ``cuda`` unless the caller passes ``device="cpu"``.
+model runs on ``cuda`` unless the caller passes ``device="cpu"``, in ``dtype``
+(fp32, or bf16 as the apps build it): a bf16 model gets a bf16 letterbox, and
+its masks are decoded, pasted, cropped and thresholded in bf16, as the JAX
+package's predictor does.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ class YOLO:
     weights: a model name ('yolo10s-seg'), an ultralytics ``.pt`` / state-dict
     ``.pth`` path, or a ``.msgpack`` file of the JAX package's flax variables.
     A name or a missing file gives a seeded random init.
+    dtype: the model's compute type, ``torch.float32`` or ``torch.bfloat16``.
     device: ``None`` (the card) or ``"cpu"``; without a card only ``"cpu"`` works.
     """
 
@@ -67,6 +71,7 @@ class YOLO:
         weights: str = "yolo10s-seg",
         nc: int = 1,
         names: Optional[dict] = None,
+        dtype: torch.dtype = torch.float32,
         max_det: int = 300,
         max_masks: int = 32,
         seed: int = 0,
@@ -84,7 +89,7 @@ class YOLO:
         self.max_masks = max_masks
         # Platt calibration (a, b): reported conf = σ(a·logit(s) + b)
         self.conf_calib: Optional[Tuple[float, float]] = None
-        self.model = YOLOModel(self.version, self.scale, nc, self.task)
+        self.model = YOLOModel(self.version, self.scale, nc, self.task, dtype=dtype)
         self._load_weights(seed)
         self.model.to(self.device).eval()
 
@@ -227,7 +232,7 @@ class YOLO:
         One linear resample from proto to original resolution with the
         letterbox pad carried as a fractional pad/4; retina then crops at
         original coordinates (non-retina masks arrive box-cropped at proto
-        resolution)."""
+        resolution).  bf16 masks are resampled and cropped in bf16."""
         pad4 = (pad[0] / 4.0, pad[1] / 4.0)
         full = paste_masks_to_original(masks_p, r / 4, pad4, orig_hw)
         if retina:
@@ -239,7 +244,7 @@ class YOLO:
         """The device part of one batch: frames (B, h0, w0, 3) uint8 BGR."""
         h0, w0 = frames.shape[1:3]
         r, _, pad = letterbox_params(h0, w0, imgsz)
-        imgs, _, _ = letterbox(frames, imgsz, bgr_to_rgb=True)
+        imgs, _, _ = letterbox(frames, imgsz, bgr_to_rgb=True, dtype=self.model.dtype)
         out = self.model(imgs)
         det = select_detections(out, nms_free=self.version == "v10", conf_thres=conf,
                                 iou_thres=iou, max_det=self.max_det)

@@ -45,7 +45,8 @@ class ClassifierNet:
     Weights: ``checkpoint``, a timm ``.pth.tar`` / ``.pth`` file; else
     ``variables``, the JAX package's variable tree (``params`` + ``batch_stats``,
     or the path of its flax msgpack file) or a timm-keyed state dict; else a
-    seeded random init from ``seed``.  device: ``None`` (the card) or ``"cpu"``.
+    seeded random init from ``seed``.  dtype: the compute type, fp32 or bf16
+    (the softmax stays fp32).  device: ``None`` (the card) or ``"cpu"``.
     """
 
     def __init__(
@@ -54,12 +55,13 @@ class ClassifierNet:
         checkpoint: Optional[str] = None,
         num_classes: int = NUM_CLASSES,
         input_size: int = INPUT_IMG_SIZE,
+        dtype: torch.dtype = torch.float32,
         seed: int = 0,
         variables=None,
         device=None,
     ):
         self.device = resolve_device(device)
-        self.model = create_model(model_name, num_classes=num_classes)
+        self.model = create_model(model_name, num_classes=num_classes, dtype=dtype)
         self.input_size = input_size
         if checkpoint:
             load_classifier_state_dict(self.model, extract_state_dict(checkpoint))
@@ -77,7 +79,7 @@ class ClassifierNet:
     def _forward(self, images_u8: torch.Tensor):
         """RGB uint8 (B, H, W, 3) on the model's device → (indices, max
         probabilities, probabilities (B, num_classes) fp32)."""
-        logits = self.model(preprocess_classifier(images_u8, self.input_size))
+        logits = self.model(preprocess_classifier(images_u8, self.input_size, self.model.dtype))
         probs = torch.softmax(logits.float(), dim=-1)
         return probs.argmax(dim=-1), probs.amax(dim=-1), probs
 

@@ -22,7 +22,16 @@ What differs from the JAX package, on purpose:
     the kernel does not compute, and stays ``network.memory_readout_dense``;
   * tensors are channel-first (``network.py``); ``write_pos``, ``lt_pos`` and
     ``frame_idx`` are Python ints (``memory.py``);
-  * ``align_voting`` and ``quantized_memory`` are not ported yet and raise.
+  * ``align_voting`` and ``quantized_memory`` are not ported yet and raise;
+  * ``affinity_bf16`` acts on the long-term path only (``memory_readout_dense``,
+    which rounds the (Q, M) affinity to bf16 before the softmax, as the JAX
+    package's readout does).  On the kernel path (long-term off) it has no
+    effect: the kernel takes the softmax of the fp32 logits that its products
+    accumulate and never stores the affinity, so there is no (Q, M) tensor
+    whose traffic the option halves in the JAX package, and rounding the
+    logits would only add error.  A bf16 tracker with ``affinity_bf16=True``
+    therefore differs from the JAX one by that rounding
+    (``tests/test_torch_bench.py`` states the limits).
 """
 
 from __future__ import annotations
@@ -292,7 +301,7 @@ class TrackerCore:
         readout = readout.reshape(self.max_objects, w, self.h16, self.w16, -1)
         return readout.permute(1, 0, 4, 2, 3), memory
 
-    def _propagate_scan_core(self, memory: MemoryState, keys_w, f16_w, exact: bool = False):
+    def _propagate_scan_core(self, memory: MemoryState, keys_w, f16_w, exact: bool, any_active: bool):
         """The memory-coupled part of one window: readout → decoder head → sensory
         update → ring write from the last frame's stride-16 mask.  The decode tail
         depends on the memory only through the hidden state, so callers run it
@@ -303,7 +312,9 @@ class TrackerCore:
         through the w frames one by one, as the per-frame ``step`` does, while
         the readout stays batched (the ring only changes at the window's end).
 
-        keys_w (w, Ck, H16, W16); f16_w (w, C, H16, W16).  Returns (memory,
+        keys_w (w, Ck, H16, W16); f16_w (w, C, H16, W16).  ``any_active``: whether
+        any slot of ``memory`` is active, which decides the write; the caller
+        reads it from the device once for all its windows.  Returns (memory,
         hidden (w, No, C, H16, W16), logits16 (w, No, H16, W16))."""
         readout, memory = self._read_window(keys_w, memory)
         w = keys_w.shape[0]
@@ -324,7 +335,7 @@ class TrackerCore:
             sensory = self.net.update_sensory(memory.sensory, hidden[-1])
         prob16_last = soft_aggregate(logits16[-1], memory.active.to(logits16.dtype))
         memory = memory._replace(sensory=sensory)
-        if bool(memory.active.any()):
+        if any_active:
             if self.enable_long_term and bool(memory.valid[memory.write_pos]):
                 memory = consolidate(memory, self.num_prototypes)
             memory = self._write(memory, keys_w[-1], f16_w[-1], prob16_last[1:])
@@ -345,7 +356,8 @@ class TrackerCore:
         proj = skips_w if "f4p" in skips_w else self.net.project_skips(skips_w)
         act = memory.active
         memory, hidden, _ = self._propagate_scan_core(
-            memory, keys_w, skips_w["f16"], exact=self.exact_windows if exact is None else exact
+            memory, keys_w, skips_w["f16"], exact=self.exact_windows if exact is None else exact,
+            any_active=bool(act.any()),
         )
         logits_s4 = self.net.decode_tail(hidden, proj["f8p"], proj["f4p"])
         if return_logits:
@@ -368,12 +380,13 @@ class TrackerCore:
         key, skips0 = self._encode1(image)
         return self._step_from_feats(memory, key, skips0)
 
-    def _step_from_feats(self, memory: MemoryState, key, skips0, readout=None):
+    def _step_from_feats(self, memory: MemoryState, key, skips0, readout=None, full_res: bool = True):
         """Propagate one frame from its features (key (Ck, H16, W16), skips of one
-        frame).  Returns (prob (No+1, H, W), memory)."""
+        frame).  Returns (prob (No+1, H, W), memory); with ``full_res=False`` prob
+        stays at stride 4, (No+1, H/4, W/4)."""
         if readout is None:
             readout, memory = self._read(key, memory)
-        prob, prob_s16, sensory = self._decode_and_update(memory, skips0, readout)
+        prob, prob_s16, sensory = self._decode_and_update(memory, skips0, readout, full_res=full_res)
         memory = memory._replace(sensory=sensory)
         if memory.frame_idx % self.mem_every == 0 and bool(memory.active.any()):
             # before an occupied slot is overwritten, its most used elements
@@ -440,10 +453,11 @@ class TrackerCore:
             )
         proj = self.net.project_skips(skips)
         act = memory.active
+        any_active = bool(act.any())  # the windows do not change it: one wait for the device, not one a window
         hiddens = []
         for i in range(0, B, window):
             memory, hidden, _ = self._propagate_scan_core(
-                memory, keys[i:i + window], skips["f16"][i:i + window], exact=exact
+                memory, keys[i:i + window], skips["f16"][i:i + window], exact=exact, any_active=any_active
             )
             hiddens.append(hidden)
         logits_s4 = self.net.decode_tail(torch.cat(hiddens), proj["f8p"], proj["f4p"])
