@@ -13,7 +13,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      ``memory_readout`` (fp32 and bf16, ragged shapes, odd
      object counts, the memory split over blocks, a softmax spread over the
      memory and one carried by a few elements; fp32 also against a float64
-     readout on large logits) and ``decode_tail`` (fp32 and bf16, the window,
+     readout on large logits; with ``affinity_bf16`` at the bench's and the
+     tracker's shapes) and ``decode_tail`` (fp32 and bf16, the window,
      one frame, shapes down to a single pixel, and the bench's 128 × 2 cells);
   3. drive the main paths with every kernel's launch count set to 0 just before
      and read just after, each kernel of a path must have run:
@@ -34,8 +35,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      detector and a bf16 B3, each held to the fp32 run; the bench's fused
      seg+track step (``python -m yolo_puncture_tpu_torch.bench``: B 128 of
      720×1280, bf16 YOLOv10-S seg, the bf16 tracker at 480×864, window 4) for 5
-     timed steps, whose line it prints; and the tracker-quality protocol
+     timed steps, whose line it prints; the tracker-quality protocol
      (``track/quality.py``, fp32 and bf16) against the JAX package's 0.662;
+     the tracking app ``apps/track_video.py`` (3i: its ``parse_args``,
+     ``make_config``, ``build_models`` and ``track`` on 20 seeded 720×1280 frames
+     of a moving bar, the tracker at 480×864 with the needle checkpoint,
+     YOLOv10-S seg at 640² with retina masks and a calibration sidecar that makes
+     the seeded head detect at the app's conf 0.9: online, semi-online with both
+     alignments, ``--batch_propagation``, ``--amp``; each also with a bar detector
+     whose tracked masks must cover the bar; per-frame times fp32 and ``--amp``),
+     ``auto_speed_calc``'s pipeline with its output line (3j), and the C++ host
+     geometry against its numpy versions on the pipeline's masks (3k);
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -45,7 +55,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   6. time each kernel, its plain version and a PyTorch yardstick with CUDA
      events, and ``predict``, one ``step``, one window and the pipeline's
      ``process_frames`` over the clip (frames per second, its stages) with a
-     synchronised host clock, in fp32 and bf16, and the bench step's stages.
+     synchronised host clock, in fp32 and bf16, and the bench step's stages
+     and step times with ``affinity_bf16`` on and off in turns.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on its main path, its error against the plain version, its
@@ -101,6 +112,27 @@ READOUT_BF16_FLOOR = 2e-5
 # no fp32 readout stays within 2e-6: the kernel may be twice as far from float64 as the
 # plain fp32 version is on the same inputs (1e-5 at the window), plus this
 READOUT_FP64_TOL = 2e-6
+# the readout with affinity_bf16 (each logit rounded to bf16 before the softmax), kernel
+# against plain version: both round bf16(s) from their own fp32 product s = q·k, which
+# differ by the order of the fp32 sums (3×TF32 on the fp32 path): at most 64 products of
+# 2^-21 relative error each, far under READOUT_AFF_DELTA · Σ|q_i k_i|.  A logit within
+# that distance of a bf16 rounding edge may round the other way on the two sides and
+# move by one step of the bf16 grid (at most two of its ulps at a power of two, times
+# bf16(Ck^-0.5)), which moves its weight p by a factor expm1(step) and the row's output
+# by p·expm1(step)·(|v| + |out|)/l.  The limit adds to the readout's own limit (FP32_TOL,
+# or readout_bf16_limit) the smaller of the sum of those over the row's near elements and
+# READOUT_AFF_SPREAD deviations of their independent sum.  The other elements round alike
+# on both sides.
+READOUT_AFF_DELTA = 2.0 ** -14
+READOUT_AFF_SPREAD = 10.0
+# (Q, M, No, valid, forced splits): the bench's window (one object pair), the tracker's
+# window, one frame (the memory split over blocks)
+READOUT_AFFINITY_CASES = [
+    (6480, 12968, 2, "all", None),
+    (6480, 12968, 2, "slots", None),
+    (8100, 12968, 4, "random", None),
+    (1620, 12968, 4, "all", None),
+]
 # the bf16 tracker against the fp32 tracker, both on the card: the limits of the CPU
 # test of the same pair (tests/test_torch_track_core.py)
 TRACK_BF16_PROB_TOL = 0.1
@@ -401,8 +433,10 @@ def compare_to_cpu(gpu_r, cpu_r) -> dict:
 def readout_inputs(Q, M, No, Cv, dtype, seed, device, valid="all", scale=1.0, match=False):
     """Seeded query, keys, values and validity for the memory readout.  ``valid``:
     'all', 'none', 'random' (half), 'last' (only the last three elements, so
-    that the first valid element lies in the last tile), or 'slots' (every other
-    run of 1620 elements, a ring slot at 480×864, so that tiles straddle an edge).
+    that the first valid element lies in the last tile), 'slots' (every other
+    run of 1620 elements, a ring slot at 480×864, so that tiles straddle an edge)
+    or 'ring' (the first five slots of 1620: a ring that is only partly filled,
+    as a tracker's is for its first 25 frames at ``mem_every`` 5).
     ``scale`` multiplies query and keys: at 1 a row's softmax spreads over
     thousands of elements, at 2 the logits have a deviation of 4 and a few
     elements anywhere in the memory carry each row.  ``match`` adds 1.2 × query
@@ -413,7 +447,8 @@ def readout_inputs(Q, M, No, Cv, dtype, seed, device, valid="all", scale=1.0, ma
     k = rng.standard_normal((M, 64)).astype(np.float32) * np.float32(scale)
     v = rng.standard_normal((No, M, Cv)).astype(np.float32)
     mask = {"all": np.ones(M, bool), "none": np.zeros(M, bool), "random": rng.random(M) < 0.5,
-            "last": np.arange(M) >= M - 3, "slots": (np.arange(M) // 1620) % 2 == 0}[valid]
+            "last": np.arange(M) >= M - 3, "slots": (np.arange(M) // 1620) % 2 == 0,
+            "ring": np.arange(M) < 5 * 1620}[valid]
     if match:
         n = min(Q, M)
         k[:n] += np.float32(1.2) * q[:n]
@@ -462,13 +497,21 @@ READOUT_CASES = [
     (8100, 12968, 4, "slots", 2),
     (6480, 12968, 2, "all", None),       # the bench's window: 4 frames of 30 x 54, one object pair
     (6480, 12968, 2, "slots", None),
+    # the tracking app's tracker (TrackerCore's defaults at 480×864: ring 16, 8 vestigial
+    # long-term slots, 8 objects, so M = 16·1620 + 8), a frame and a
+    # --batch_propagation window, its ring partly filled
+    (1620, 25928, 8, "ring", None),
+    (8100, 25928, 8, "ring", None),
+    (1620, 25928, 8, "slots", None),
+    (8100, 25928, 8, "slots", None),
+    (1620, 25928, 8, "last", None),
 ]
 # the same tuples, for the fp32 kernel against a float64 readout on matched inputs
 READOUT_FP64_CASES = [(96, 640, 2, "random", None), (96, 640, 2, "random", 3),
                       (1620, 12968, 4, "random", None), (8100, 12968, 4, "slots", None)]
 
 
-def launch_readout(q, k, v, ok, n_split=None):
+def launch_readout(q, k, v, ok, n_split=None, affinity_bf16=False):
     """``memory_readout`` with the wrapper's own choice of memory splits or with
     ``n_split`` forced; returns (readout, splits used)."""
     from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
@@ -477,9 +520,74 @@ def launch_readout(q, k, v, ok, n_split=None):
     try:
         if n_split is not None:
             mr.split_for = lambda *a: n_split
-        return mr.memory_readout(q, k, v, ok), mr.split_for(q.shape[0], k.shape[0], q.device)
+        return (mr.memory_readout(q, k, v, ok, affinity_bf16=affinity_bf16),
+                mr.split_for(q.shape[0], k.shape[0], q.device))
     finally:
         mr.split_for = chosen
+
+
+def readout_affinity_limit(q, k, v, ok, ref, base):
+    """Largest difference allowed at each element of a readout with
+    ``affinity_bf16`` against its plain version ``ref``: ``base`` (the readout's
+    own limit) plus what logits near a bf16 rounding edge may add (see
+    READOUT_AFF_DELTA and the lines above it)."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import readout_logits
+
+    qf, kf = q.float(), k.float()
+    s = torch.matmul(qf, kf.T)
+    delta = READOUT_AFF_DELTA * torch.matmul(qf.abs(), kf.abs().T)
+    near = ((s - delta).bfloat16() != (s + delta).bfloat16()) & ok[None, :]
+    del delta
+    logits = readout_logits(q, k, affinity_bf16=True).masked_fill(~ok[None, :], float("-inf"))
+    m = logits.max(dim=-1, keepdim=True).values
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, torch.zeros_like(m))) * ok[None, :]
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    del logits
+    step = 2.0 * bf16_ulp(s) * float(torch.tensor(q.shape[-1] ** -0.5).bfloat16())
+    f = torch.expm1(step) * p * near                                # (Q, M): a weight's move where it flips
+    del s, step, p, near
+    vf, r = v.float().abs(), ref.float().abs()
+    worst = (torch.matmul(f, vf) + f.sum(dim=-1, keepdim=True)[None] * r) / l[None]
+    f2 = f * f
+    spread = READOUT_AFF_SPREAD * torch.sqrt(
+        2.0 * torch.matmul(f2, vf * vf) + 2.0 * f2.sum(dim=-1, keepdim=True)[None] * r * r) / l[None]
+    return base + torch.minimum(worst, spread)
+
+
+def check_readout_affinity_case(case, dtype, scale, device, seed=400) -> float:
+    """One case of READOUT_AFFINITY_CASES on the card: the kernel with
+    ``affinity_bf16`` against the plain version with it, within
+    ``readout_affinity_limit`` at every element, and nearer to it on average than
+    to the plain version without it (the option acts).  Raises where either does
+    not hold; returns the largest absolute difference."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout_reference
+
+    Q, M, No, valid, n_split = case
+    q, k, v, ok = readout_inputs(Q, M, No, 128, dtype, seed, device, valid, scale)
+    got, used = launch_readout(q, k, v, ok, n_split, affinity_bf16=True)
+    ref = memory_readout_reference(q, k, v, ok, affinity_bf16=True)
+    unrounded = memory_readout_reference(q, k, v, ok)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or tuple(got.shape) != (No, Q, 128) or not torch.isfinite(got).all():
+        raise AssertionError(f"memory_readout with affinity_bf16 gave {got.dtype} {tuple(got.shape)}")
+    base = (torch.full_like(ref, FP32_TOL, dtype=torch.float32) if dtype == torch.float32
+            else readout_bf16_limit(q, k, v, ok, ref))
+    limit = readout_affinity_limit(q, k, v, ok, ref, base)
+    diff = (got.float() - ref.float()).abs()
+    off = float((got.float() - unrounded.float()).abs().mean())
+    at = int((diff / limit).argmax())
+    log(f"memory_readout affinity_bf16 Q={Q} M={M} No={No} valid={valid} scale={scale:g} splits={used} "
+        f"{str(dtype)[6:]}: max abs diff {float(diff.max()):.3g}, mean {float(diff.mean()):.3g} (to the unrounded "
+        f"plain version {off:.3g}); nearest its limit {float(diff.flatten()[at]):.3g} of "
+        f"{float(limit.flatten()[at]):.3g}; limit median {float(limit.median()):.3g}, the base's "
+        f"{float(base.median()):.3g}")
+    if not bool((diff <= limit).all()):
+        raise AssertionError(f"memory_readout with affinity_bf16 differs from its plain version by "
+                             f"{float(diff.flatten()[at])} where the limit is {float(limit.flatten()[at])}")
+    if not float(diff.mean()) < off:
+        raise AssertionError("memory_readout with affinity_bf16 is no nearer the rounded plain version than "
+                             "the unrounded one: the option does not act")
+    return float(diff.max())
 
 
 def check_readout_case(case, dtype, scale, device, seed=200) -> float:
@@ -538,8 +646,9 @@ def check_readout_fp64_case(case, device, seed=260) -> float:
 
 def check_memory_readout(device) -> dict:
     """Kernel vs plain version on the card at every case, flat and peaked softmax,
-    and the fp32 kernel vs a float64 readout; returns the largest absolute
-    difference to the plain version in fp32 and in bf16."""
+    the fp32 kernel vs a float64 readout, and the affinity_bf16 cases; returns the
+    largest absolute difference to the plain version, by dtype and by
+    ("affinity_bf16", dtype)."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, case in enumerate(READOUT_CASES):
         for dtype in worst:
@@ -547,6 +656,11 @@ def check_memory_readout(device) -> dict:
                 worst[dtype] = max(worst[dtype], check_readout_case(case, dtype, scale, device, 200 + i))
     for i, case in enumerate(READOUT_FP64_CASES):
         check_readout_fp64_case(case, device, 260 + i)
+    for i, case in enumerate(READOUT_AFFINITY_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for scale in (1.0, 2.0):
+                key = ("affinity_bf16", dtype)
+                worst[key] = max(worst.get(key, 0.0), check_readout_affinity_case(case, dtype, scale, device, 400 + i))
     return worst
 
 
@@ -574,9 +688,11 @@ def tail_inputs(N, No, H16, W16, dtype, seed, device):
 
 
 # (N, No, H16, W16): the window, one frame, then shapes that leave the kernel's 32 x 8
-# pixel tiles ragged in both stages, down to a single pixel, and the bench's batch
+# pixel tiles ragged in both stages, down to a single pixel, the bench's batch, and the
+# tracking app's frame and --batch_propagation window with its 8 objects
 TAIL_CASES = [(5, 4, 30, 54), (1, 4, 30, 54), (2, 3, 5, 7), (3, 1, 1, 1), (2, 1, 7, 9), (1, 3, 17, 33),
-              (128, 2, 30, 54)]   # the bench's launch: 128 frames x 2 objects, 256 cells
+              (128, 2, 30, 54),   # the bench's launch: 128 frames x 2 objects, 256 cells
+              (1, 8, 30, 54), (5, 8, 30, 54)]
 TAIL_TOL = {torch.float32: FP32_TOL, torch.bfloat16: TAIL_BF16_TOL}
 
 
@@ -1017,6 +1133,25 @@ def bench_stage_ms(model, tracker, frames, imgsz) -> dict:
     return ms
 
 
+def bench_steps_ms(model, tracker, frames, imgsz, iters: int = 4) -> list:
+    """``iters`` fused bench steps back to back with no clock between them, each
+    timed with CUDA events as ``run_bench`` times them; returns their ms."""
+    import yolo_puncture_tpu_torch.bench as bm
+
+    mem, track_fn = tracker
+    step = bm.make_fused_step(model, track_fn, imgsz)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    chk = torch.zeros((), device=frames.device)
+    torch.cuda.synchronize()
+    for i in range(iters):
+        marks[i].record()
+        out, mem = step(mem, frames, bm.CONF, chk)
+        chk = out["chk"]
+    marks[iters].record()
+    torch.cuda.synchronize()
+    return [marks[i].elapsed_time(marks[i + 1]) for i in range(iters)]
+
+
 def proto_decode_bf16_times(Bt, N, Hp, Wp, crop, device, seed=21) -> dict:
     """``proto_decode_bf16`` at one launch shape: the bare launch, the plain
     version and ``torch.matmul`` of the bare product in bf16, in turns (200
@@ -1042,6 +1177,185 @@ def proto_decode_bf16_times(Bt, N, Hp, Wp, crop, device, seed=21) -> dict:
     P = Hp * Wp
     bytes_moved = 2 * (Bt * 32 * P + Bt * N * 32 + Bt * N * P) + 4 * Bt * N * 4
     return {"times": times, "graph": graph, "bytes": bytes_moved, "flops": 2 * Bt * N * P * 32}
+
+
+# the tracking app (``apps/track_video.py``) at full width: a clip of a bright bar moving over
+# noise at 720p, the tracker at 480×864 with the needle checkpoint; the tracked mask of the
+# bar detector's run must cover the bar with an IoU of at least TV_BAR_IOU on every frame
+TV_FRAMES = 20
+TV_BAR_IOU = 0.5
+
+
+class _AppResult:
+    """The part of ``Results`` that ``apps/track_video.py auto_segment`` reads."""
+
+    def __init__(self, masks, conf):
+        self.masks = type("Masks", (), {"data": masks, "__len__": lambda s: len(masks)})() if masks else None
+        self.boxes = type("Boxes", (), {"conf": np.asarray(conf, np.float32),
+                                        "cls": np.zeros(len(conf), np.int64)})()
+
+
+class BarDetector:
+    """``YOLO.predict``'s surface for the tracking app: one instance, the pixels
+    brighter than 200 of the frame it is handed, as a float {0, 1} retina mask at
+    that frame's size, with score 0.95.  It stands in for a detector that finds the
+    bar, which seeded weights do not, so that the tracker's masks can be held to
+    the bar."""
+
+    def predict(self, image_bgr, **kw):
+        m = (np.asarray(image_bgr).max(-1) > 200).astype(np.float32)
+        return [_AppResult([m], [0.95]) if m.any() else _AppResult([], [])]
+
+
+class TimedDetector:
+    """A detector whose ``predict`` calls are timed on the host clock (they
+    return numpy arrays, so each ends synchronised)."""
+
+    def __init__(self, det):
+        self.det, self.ms, self.calls = det, 0.0, 0
+
+    def predict(self, *a, **kw):
+        t = time.perf_counter()
+        out = self.det.predict(*a, **kw)
+        self.ms += (time.perf_counter() - t) * 1e3
+        self.calls += 1
+        return out
+
+
+def app_calibration(model_dir, frames_rgb, min_side, imgsz) -> tuple:
+    """Writes ``model_dir/calibration.json`` so that the tracking app's fixed
+    ``conf=0.9`` reads, for the seeded YOLOv10-S seg, as the middle of the widest
+    gap between the clip's best raw scores among the lowest quarter of them: at
+    least three quarters of the frames detect (the app runs the detector on only
+    some frames), and no score lies near the threshold.  A frame's best score
+    counts only detections whose retina mask keeps twice the app's
+    ``MIN_AREA_THRESHOLD`` of 100 pixels at the frame's size, and the frames are
+    those that ``auto_segment`` hands the detector.  Platt a = 1,
+    b = logit(0.9) − logit(middle).  Returns (middle, the gap)."""
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.ops.resize import resize_linear_u8
+
+    h, w = frames_rgb[0].shape[:2]
+    scale = min_side / min(h, w)
+    size = (int(h * scale), int(w * scale))
+    min_px = 2 * 100 / (1.0 / scale) ** 2            # the mask is resized to the frame before its area is taken
+    det = YOLO("yolo10s-seg", nc=1, seed=0)
+    best = []
+    for i in range(0, len(frames_rgb), 4):
+        bgr = [resize_linear_u8(torch.from_numpy(f), size).numpy()[..., ::-1].copy() for f in frames_rgb[i:i + 4]]
+        for r in det.predict(bgr, conf=0.0, imgsz=imgsz, retina_masks=True):
+            big = r.masks.data.reshape(len(r.masks.data), -1).sum(1) >= min_px
+            conf = np.asarray(r.boxes.conf)[:len(big)][big]
+            best.append(float(conf.max()) if len(conf) else 0.0)
+    best = np.sort(best)
+    i = int(np.argmax(np.diff(best)[:max(len(best) // 4, 1)]))
+    mid = float((best[i] + best[i + 1]) / 2)
+    if not mid > 0:
+        raise AssertionError(f"too few frames have a detection with a mask of {min_px:.0f} pixels: {best}")
+    logit = lambda p: float(np.log(p / (1.0 - p)))  # noqa: E731
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "calibration.json"), "w") as f:
+        json.dump({"a": 1.0, "b": logit(0.9) - logit(mid)}, f)
+    return mid, float(best[i + 1] - best[i])
+
+
+def run_track_app(argv, frames_rgb, detector=None, device=None) -> dict:
+    """The tracking app as its ``main`` runs it, on decoded frames: ``parse_args``,
+    ``make_config``, ``build_models`` and ``track`` over (frame, name) pairs, with
+    ``detector`` in place of the app's YOLO if given (the YOLO is built all the
+    same).  Returns the app's pieces, the per-frame argmax id maps at the
+    tracker's size, and host-clock ms: the whole run, the detector's calls, the
+    saver's."""
+    from yolo_puncture_tpu_torch.apps import track_video as tv
+    from yolo_puncture_tpu_torch.track import ResultSaver
+
+    ids, saver_ms = {}, [0.0]
+
+    class RecordingSaver(ResultSaver):
+        def save_mask(self, prob, frame_name, *a, **kw):
+            t = time.perf_counter()
+            super().save_mask(prob, frame_name, *a, **kw)
+            saver_ms[0] += (time.perf_counter() - t) * 1e3
+            ids[frame_name] = np.argmax(prob, axis=0)
+
+    args = tv.parse_args(argv)
+    cfg = tv.make_config(args, len(frames_rgb))
+    yolo, tracker = tv.build_models(args, cfg, frames_rgb[0].shape[:2], device)
+    det = TimedDetector(detector or yolo)
+    saver = RecordingSaver(args.output, cfg["video_name"], object_manager=tracker.object_manager)
+    pairs = [(f, f"{i:05d}.jpg") for i, f in enumerate(frames_rgb)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tv.track(args, tracker, det, pairs, saver)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    with open(os.path.join(args.output, "pred.json")) as f:
+        pred = json.load(f)
+    pngs = sorted(os.listdir(os.path.join(args.output, "Annotations", cfg["video_name"])))
+    if len(pred["annotations"]) != len(frames_rgb) or pngs != [f"{i:05d}.png" for i in range(len(frames_rgb))]:
+        raise AssertionError(f"track_video wrote {len(pred['annotations'])} annotations and {len(pngs)} PNGs "
+                             f"for {len(frames_rgb)} frames")
+    return {"args": args, "cfg": cfg, "tracker": tracker, "pred": pred, "ids": [ids[n] for _, n in pairs],
+            "ms": ms, "detector_ms": det.ms, "detector_calls": det.calls, "saver_ms": saver_ms[0]}
+
+
+def app_geometry(records) -> dict:
+    """The pipeline's host geometry over the detected frames' letterbox masks
+    (``records`` from ``VideoSpeedPipeline._run``): the polygon and the length
+    from the C++ tracer and calipers (what ``mask_to_polygons`` and
+    ``min_rect_len`` take without cv2) against the numpy versions: polygons equal,
+    lengths within 1e-9 relative (or, where two hull edges tie, rectangles of
+    equal area).  Returns the per-frame host ms of each, medians of 3 passes."""
+    from yolo_puncture_tpu_torch import native
+    from yolo_puncture_tpu_torch.ops import geometry as geo
+
+    items = [(r["mask_lb"], r["pad"], r["ratio"]) for r in records if bool(r["valid"])]
+    if not items:
+        raise AssertionError("no detected frame to measure the host geometry on")
+
+    def length(poly, pad, r, rect):
+        if len(poly) == 0:
+            return 0.0, 0.0
+        pts = np.asarray((poly - pad) / r, dtype=np.int32).reshape(-1, 2)
+        if len(pts) < 3:
+            return 0.0, 0.0
+        (_, (w, h), _) = rect(pts.astype(np.float64))
+        return max(w, h), w * h
+
+    def numpy_pass():
+        out = []
+        for m, pad, r in items:
+            polys = geo._trace_contours_np(m)
+            poly = max(polys, key=len) if polys else np.zeros((0, 2), np.float32)
+            out.append((poly, length(poly, pad, r, geo._min_area_rect_np)))
+        return out
+
+    def native_pass():
+        out = []
+        for m, pad, r in items:
+            polys = native.trace_contours(m, largest_only=True)
+            poly = polys[0] if polys else np.zeros((0, 2), np.float32)
+            out.append((poly, length(poly, pad, r, native.min_area_rect)))
+        return out
+
+    times = {"numpy": [], "native": []}
+    for _ in range(3):
+        for name, fn in (("numpy", numpy_pass), ("native", native_pass)):
+            t = time.perf_counter()
+            res = fn()
+            times[name].append((time.perf_counter() - t) * 1e3 / len(items))
+            if name == "numpy":
+                ref = res
+            else:
+                got = res
+    for (gp, (gl, ga)), (rp, (rl, ra)) in zip(got, ref):
+        if not np.array_equal(gp, rp):
+            raise AssertionError("the C++ tracer's polygon differs from the numpy tracer's")
+        if not (abs(gl - rl) <= 1e-9 * max(rl, 1.0) or abs(ga - ra) <= 1e-9 * max(ra, 1.0)):
+            raise AssertionError(f"the C++ calipers give {gl} (area {ga}), numpy {rl} (area {ra})")
+    return {"frames": len(items), "numpy_ms_per_frame": sorted(times["numpy"])[1],
+            "native_ms_per_frame": sorted(times["native"])[1],
+            "points": int(np.median([len(p) for p, _ in got]))}
 
 
 def main() -> int:
@@ -1259,6 +1573,103 @@ def main() -> int:
             raise AssertionError(f"tracker quality row {row}: {q['mean_iou']} is not within {QUALITY_TOL} of "
                                  f"the JAX package's {q['jax_mean_iou']}")
 
+    # -- 3i. the tracking app (apps/track_video.py) at full width -------------------------------------------
+    from yolo_puncture_tpu_torch.ops.resize import resize_nearest
+
+    tv_frames, tv_masks = bar_frames(TV_FRAMES, h0, w0, seed=4)
+    tv_root = os.path.join(ROOT, "build", "track_video")
+    tv_model = os.path.join(tv_root, "model", "yolo10s-seg")      # no such file: the seeded init, its sidecar beside it
+    tv_mid, tv_gap = app_calibration(os.path.dirname(tv_model), tv_frames, 480, imgsz)
+    log(f"track_video: calibration.json puts the app's conf 0.9 at raw score {tv_mid:.6f}, in a gap of {tv_gap:.3g} "
+        f"between the clip's best scores")
+    tv_base = ["--video_name", "bar", "--img_path", "decoded-frames", "--model", tv_model, "--imgsz", str(imgsz),
+               "--tracker_weights", NEEDLE]
+    tv_runs = [  # (name, flags, the kernels its path must launch)
+        ("online, long-term off", ["--temporal_setting", "online", "--disable_long_term"],
+         ("proto_decode", "memory_readout", "decode_tail")),
+        ("semionline, align_voting propagate", ["--align_voting", "propagate"], ("proto_decode", "decode_tail")),
+        ("semionline, align_voting affinity", ["--align_voting", "affinity"], ("proto_decode", "decode_tail")),
+        ("semionline, batch_propagation, long-term off", ["--batch_propagation", "--disable_long_term"],
+         ("proto_decode", "memory_readout", "decode_tail")),
+        ("online, --amp, long-term off", ["--temporal_setting", "online", "--disable_long_term", "--amp"],
+         ("proto_decode_bf16", "memory_readout_bf16", "decode_tail_bf16")),
+    ]
+    tv_segments = 0                     # segments saved over the YOLO runs
+    for i, (name, flags, needs) in enumerate(tv_runs):
+        for detector, what in ((None, "YOLOv10-S seg"), (BarDetector(), "bar detector")):
+            out_dir = os.path.join(tv_root, f"run{i}" + ("_bar" if detector else ""))
+            mr.memory_readout.launches = dt.decode_tail.launches = 0
+            proto_decode.launches = proto_decode.launches_bf16 = 0
+            run = run_track_app(tv_base + flags + ["--output", out_dir], tv_frames, detector)
+            bf16 = "--amp" in flags
+            got = {("proto_decode_bf16" if bf16 else "proto_decode"):
+                   proto_decode.launches_bf16 if bf16 else proto_decode.launches,
+                   ("memory_readout_bf16" if bf16 else "memory_readout"): mr.memory_readout.launches,
+                   ("decode_tail_bf16" if bf16 else "decode_tail"): dt.decode_tail.launches}
+            n_seg = [len(a["segments_info"]) for a in run["pred"]["annotations"]]
+            iou = [round(float(((ids > 0) & m).sum() / max(((ids > 0) | m).sum(), 1)), 4) for ids, m in
+                   zip(run["ids"], (resize_nearest(m.astype(np.uint8), run["tracker"].image_size) > 0
+                                    for m in tv_masks))]
+            log(f"main path (track_video {name}, {what}, {TV_FRAMES} frames {h0}x{w0}, tracker "
+                f"{run['tracker'].image_size}, long-term {run['cfg']['enable_long_term']}): launches {json.dumps(got)}; "
+                f"{run['detector_calls']} detector calls; segments per frame {n_seg}; IoU of the tracked ids with "
+                f"the bar {iou}; {run['ms']:.1f} ms")
+            for k in needs:
+                if detector is not None and k.startswith("proto_decode"):
+                    continue
+                if got.get(k, 0) <= 0:
+                    raise AssertionError(f"track_video ({name}, {what}) did not launch {k}")
+                launches[k] += got[k]
+            if detector is not None:
+                if min(iou) < TV_BAR_IOU or sorted(run["tracker"].object_manager.all_obj_ids) != [1]:
+                    raise AssertionError(f"track_video ({name}) lost the bar: IoU {iou}, ids "
+                                         f"{run['tracker'].object_manager.all_obj_ids}")
+            else:
+                tv_segments += sum(n_seg)
+    if tv_segments == 0:
+        raise AssertionError("track_video with YOLOv10-S seg tracked nothing: the calibrated detector found nothing")
+    # per-frame times on the host clock, fp32 and --amp in turns, each after the runs above
+    tv_times = {}
+    for name, flags in (("online, long-term off", ["--temporal_setting", "online", "--disable_long_term"]),
+                        ("semionline (the app's defaults)", [])):
+        for dtype_flags in ([], ["--amp"], ["--amp"], []):
+            run = run_track_app(tv_base + flags + dtype_flags + ["--output", os.path.join(tv_root, "timed")],
+                                tv_frames)
+            key = f"{name}, {'bf16' if dtype_flags else 'fp32'}"
+            tv_times.setdefault(key, []).append(
+                {k: round(run[k] / TV_FRAMES, 3) for k in ("ms", "detector_ms", "saver_ms")})
+    for key, runs in tv_times.items():
+        log(f"track_video {key}: per frame ms (whole, detector, saver) {runs}; "
+            f"{1e3 / np.mean([r['ms'] for r in runs]):.2f} frames/s [{smi}]")
+
+    # -- 3j. the batch speed CLI (apps/auto_speed_calc.py): its pipeline over the needle clip ----------------
+    from yolo_puncture_tpu_torch.apps import auto_speed_calc as asc
+
+    asc_pipe = asc.build_pipeline(os.path.join(tv_root, "asc_model", "yolo10s-seg"), "no-such-classifier.pth.tar",
+                                  16, imgsz)
+    asc_conf, asc_gap = pipeline_conf(asc_pipe, clip)
+    proto_decode.launches = proto_decode.launches_bf16 = 0
+    t = time.perf_counter()
+    asc_out = asc_pipe.process_frames(list(clip), fps=30.0, conf=asc_conf, judge_wnd=20)
+    torch.cuda.synchronize()
+    asc_ms = (time.perf_counter() - t) * 1e3
+    n_asc = -(-PIPE_FRAMES // 16)
+    log(f"main path (auto_speed_calc's pipeline: bf16 YOLOv10-S seg and B3, batch 16, conf {asc_conf:.6f} in a gap "
+        f"of {asc_gap:.3g}): proto_decode_bf16 launched {proto_decode.launches_bf16} times for {n_asc} batches; "
+        f"{asc_ms:.1f} ms; {json.dumps(check_pipeline_output(asc_out, PIPE_FRAMES, h0, w0))}")
+    print(asc.speed_line("needle", asc_out), flush=True)
+    if proto_decode.launches_bf16 != n_asc or proto_decode.launches:
+        raise AssertionError("auto_speed_calc's pipeline must launch proto_decode_bf16 once a batch")
+    launches["proto_decode_bf16"] += proto_decode.launches_bf16
+    del asc_pipe
+
+    # -- 3k. the host geometry in C++ against its numpy versions, on the pipeline's masks -------------------
+    geo_raws, _, _ = pipe._run(((0, f) for f in clip), 1, pipe_conf)
+    geo = app_geometry(geo_raws[0])
+    log(f"host geometry over the {geo['frames']} detected frames of the needle clip (letterbox masks, "
+        f"{geo['points']} polygon points median): numpy tracer and calipers {geo['numpy_ms_per_frame']:.4f} ms a "
+        f"frame, C++ {geo['native_ms_per_frame']:.4f} ms a frame; polygons equal, lengths equal [{smi}]")
+
     # -- 4. the same calls on the CPU ------------------------------------------------------
     det_cpu = YOLO("yolo10s-seg", nc=1, seed=0, device="cpu")
     for name, res, retina in (("non-retina", res_plain, False), ("retina", res_retina, True)):
@@ -1389,13 +1800,16 @@ def main() -> int:
                 f"{float((lib_out.float() - mr.memory_readout(q, k, v, ok).float()).abs().max()):.3g}")
         else:
             what, lib = "the two-matmul dense readout (network.memory_readout_dense)", dense
+        args_aff = mr.kernel_args(q, k, v, ok, out, scratch, n_split, affinity_bf16=True)
+        ms_aff = cuda_time_ms(lambda: launch(*args_aff), iters=20, warmup=3)
         ms2 = cuda_time_ms(lambda: launch(*args), iters=20, warmup=3)     # again, after the others
         n_valid = int(ok.sum())
         esize = q.element_size()
         flops = 2 * Q * n_valid * (64 + No * Cv)
         bytes_moved = esize * (Q * 64 + n_valid * 64 + No * n_valid * Cv + No * Q * Cv) + M
         log(f"memory_readout Q={Q} M={M} ({n_valid} valid) No={No} Cv={Cv} {str(dtype)[6:]} splits={n_split}: "
-            f"kernel {ms:.4f} ms (again {ms2:.4f}; wrapper {wrapper:.4f}), plain {plain:.4f} ms, dense two-matmul "
+            f"kernel {ms:.4f} ms (again {ms2:.4f}; with affinity_bf16 {ms_aff:.4f}; wrapper {wrapper:.4f}), "
+            f"plain {plain:.4f} ms, dense two-matmul "
             f"{dense:.4f} ms, yardstick [{what}] {lib:.4f} ms, ({bytes_moved} B, {flops} FLOP) [{smi}]")
         # fp32 goes through the tensor cores as three TF32 products for every fp32 product
         name, ops, rate = (("memory_readout", 3 * flops, TF32_FLOP_PER_S) if dtype == torch.float32 else
@@ -1403,6 +1817,8 @@ def main() -> int:
         if keep:
             kernels.append(kernel_entry(name, "memory_readout", "yolo_puncture_tpu/ops/pallas/mem_attention.py:24",
                                         launches[name], max_err[name], ms, plain, lib, bytes_moved, ops, rate))
+            kernels[-1].update(affinity_bf16_max_abs_err=readout_err[("affinity_bf16", dtype)],
+                               affinity_bf16_ms=ms_aff)
         else:
             roofline_ms(f"{name}, one frame", bytes_moved, ops, rate)
         del q, k, v, ok, out, lib_out
@@ -1542,12 +1958,19 @@ def main() -> int:
     del pipe16, det16
     model16, btracker = bm.bench_models(imgsz, True, device=device)
     bframes = torch.from_numpy(bm.seeded_frames(BENCH_BATCH)).to(device)
-    bench_stage_ms(model16, btracker, bframes, imgsz)               # warm-up
-    for i in range(2):
+    core = btracker[1].core                                          # the readout reads its flag at each call
+    for aff in (True, False):                                        # warm-up
+        core.affinity_bf16 = aff
+        bench_stage_ms(model16, btracker, bframes, imgsz)
+    for i, aff in enumerate((True, False, False, True)):
+        core.affinity_bf16 = aff
+        steps = bench_steps_ms(model16, btracker, bframes, imgsz)
         stages = bench_stage_ms(model16, btracker, bframes, imgsz)
-        log(f"bench step B {BENCH_BATCH} stages ms, synchronised (run {i + 1}): "
+        log(f"bench step B {BENCH_BATCH} with affinity_bf16={aff} (turn {i + 1} of on, off, off, on): steps ms "
+            f"{[round(v, 3) for v in steps]} (CUDA events, unclocked); stages ms, synchronised: "
             f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} [{smi}]")
-    del model16, btracker, bframes
+    core.affinity_bf16 = True
+    del model16, btracker, bframes, core
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,12 @@ at imgsz 64; the tracker's weights are the shipped needle checkpoint.
 Tolerances: the bf16 resize bit for bit, its fp32 form within 2e-6 of the
 values; fp32 trackers id maps ≥ 99.9 % equal and the ring's bookkeeping equal.
 The bf16 tracker with ``affinity_bf16=True`` reads memory through the readout
-kernel's plain version, which takes the softmax of fp32 logits where the JAX
-package rounds the affinity to bf16 first (``track/core.py``): its id maps are
-held to ``BF16_ID_AGREE`` of the JAX ones and its probabilities to
-``BF16_PROB_TOL``.  The detector's outputs are handed over from the JAX side
+kernel's plain version, which rounds the logits to bf16 as the JAX package
+rounds its affinity (``track/core.py``): its id maps are held to
+``BF16_ID_AGREE`` of the JAX ones and its probabilities to ``BF16_PROB_TOL``.
+What is left between the two is XLA's bf16 arithmetic on the CPU, not the
+affinity: the JAX bf16 tracker is 0.043 from the port's fp32 one, and with the
+option on against off only 0.023 from itself.  The detector's outputs are handed over from the JAX side
 (``tests/test_torch_bf16.py`` holds the bf16 networks themselves), so the
 step's detector half is held exactly.
 """
@@ -44,8 +46,9 @@ from yolo_puncture_tpu_torch.track import TrackerCore, build_bench_tracker, refe
 
 FRAME_HW, MIN_SIDE, IMGSZ, B = (96, 160), 64, 64, 8
 ID_AGREE = 0.999
-BF16_ID_AGREE = 0.99
-BF16_PROB_TOL = 0.1
+# measured 0.99977 and 0.0491 (the bf16 affinity tracker against JAX's)
+BF16_ID_AGREE = 0.999
+BF16_PROB_TOL = 0.06
 # masks after the handed-over head: XLA fuses the JAX package's jitted bf16 decode
 # chain and keeps fp32 between fused operations where the port rounds each one,
 # so a few boundary pixels flip (tests/test_torch_bf16.py MASK_AGREE)
@@ -190,7 +193,8 @@ def test_fused_step_matches_jax_fused_step():
     jmem = jcore.memory._replace(active=jcore.memory.active.at[0].set(True))
     # the tracker as bench_models builds it
     pmem, ptrack = build_bench_tracker(dtype=torch.bfloat16, min_side=MIN_SIDE, window=4, frame_hw=FRAME_HW,
-                                       variables=_needle(), device="cpu", max_objects=2, full_res_ids=True)
+                                       variables=_needle(), device="cpu", max_objects=2, full_res_ids=True,
+                                       affinity_bf16=True)
     variables = _detector_variables()
     jstep = _jax_fused_step(JaxYOLOModel(version="v10", scale="n", nc=1, task="segment", dtype=jnp.bfloat16), jcore)
     jchk, pchk, n_valid = jnp.float32(0), torch.zeros(()), 0

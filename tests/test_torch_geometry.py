@@ -2,9 +2,12 @@
 
 ``Masks.xy`` takes the largest outer contour of each mask.  The JAX package
 gets it from ``cv2.findContours``; the port does too where cv2 is installed,
-and otherwise (as on a machine without cv2) from its own numpy tracer, which
-must give cv2's polygons exactly, in cv2's order.  The Boxes / Masks accessors
-must give the JAX package's arrays exactly.
+and otherwise (as on a machine without cv2) from its C++ tracer
+(``native/geometry.cpp``), which, like its plain numpy version, must give cv2's
+polygons exactly, in cv2's order.  The Boxes / Masks accessors must give the
+JAX package's arrays exactly.  The C++ calipers and RLE against their numpy
+versions: rectangles within 1e-9 relative (products rounded in another order
+than numpy's matmul), runs exactly.
 """
 
 import numpy as np
@@ -49,9 +52,10 @@ def _assert_same_polys(got, ref):
 @pytest.mark.parametrize("kind", ["speckle", "blobs", "rects"])
 def test_numpy_tracer_gives_cv2_contours(kind, monkeypatch):
     ref = [jgeo.mask_to_polygons(m) for m in _masks(kind, seed=len(kind))]
-    monkeypatch.setattr(pgeo, "_HAS_CV2", False)
+    monkeypatch.setattr(pgeo, "_HAS_CV2", False)                # the C++ tracer
     for m, r in zip(_masks(kind, seed=len(kind)), ref):
         _assert_same_polys(pgeo.mask_to_polygons(m), r)
+        _assert_same_polys(pgeo._trace_contours_np(m), r)
 
 
 def test_numpy_tracer_on_a_filled_square():
@@ -114,19 +118,23 @@ def _point_sets(seed, n=60):
 
 
 def test_convex_hull_and_min_area_rect_match_jax(monkeypatch):
-    """The same rectangle as the JAX package's numpy calipers, and the same area
-    as its C++ ones (where two hull edges give rectangles of equal area, the two
-    may keep different ones: seed 11 has such a quadrilateral)."""
+    """The same rectangle as the JAX package's numpy calipers (the port's plain
+    numpy version, ``_min_area_rect_np``; ``min_area_rect`` itself is C++, held
+    to it in ``test_native_geometry_matches_the_numpy_versions``), and the same
+    area as the JAX package's C++ calipers (where two hull edges give rectangles
+    of equal area, the two may keep different ones: seed 11 has such a
+    quadrilateral)."""
     import yolo_puncture_tpu.native as jnative
 
     native = [jgeo.min_area_rect(pts) for pts in _point_sets(11)]
     monkeypatch.setattr(jnative, "min_area_rect_native", lambda pts: None)
     for pts, nat in zip(_point_sets(11), native):
         np.testing.assert_array_equal(pgeo.convex_hull(pts), jgeo.convex_hull(pts))
-        got = pgeo.min_area_rect(pts)
+        got = pgeo._min_area_rect_np(pts)
         assert got == jgeo.min_area_rect(pts)
         area, nat_area = got[1][0] * got[1][1], nat[1][0] * nat[1][1]
         assert abs(area - nat_area) <= RECT_ATOL * max(nat_area, 1.0)
+    assert pgeo._min_area_rect_np(np.zeros((0, 2))) == ((0.0, 0.0), (0.0, 0.0), 0.0)
     assert pgeo.min_area_rect(np.zeros((0, 2))) == ((0.0, 0.0), (0.0, 0.0), 0.0)
 
 
@@ -191,3 +199,62 @@ def test_encodings_and_mask_filter_match_jax():
     for topn in (1, 3):
         assert [id(m) for m in pgeo.filter_masks(masks, topn)] == [id(m) for m in jgeo.filter_masks(masks, topn)]
     assert pgeo.filter_masks([]) is None
+
+
+NATIVE_RECT_RTOL = 1e-9
+
+
+def _assert_same_rect(pts):
+    """C++ calipers against numpy's: the same rectangle within NATIVE_RECT_RTOL;
+    where two hull edges give rectangles of equal area (the two smallest
+    candidates within NATIVE_RECT_RTOL of each other), either may be kept, as
+    between the JAX package's two calipers, and the areas agree."""
+    from yolo_puncture_tpu_torch import native
+
+    got, ref = native.min_area_rect(pts), pgeo._min_area_rect_np(pts)
+    hull = pgeo.convex_hull(np.asarray(pts, np.float64))
+    areas = []
+    if len(hull) >= 3:
+        edges = np.diff(np.vstack([hull, hull[:1]]), axis=0)
+        for a in np.unique(np.arctan2(edges[:, 1], edges[:, 0]) % (np.pi / 2)):
+            r = np.array([[np.cos(a), np.sin(a)], [-np.sin(a), np.cos(a)]]) @ hull.T
+            areas.append(np.prod(r.max(1) - r.min(1)))
+    areas = np.sort(areas)
+    tied = len(areas) > 1 and areas[1] - areas[0] <= NATIVE_RECT_RTOL * max(areas[0], 1.0)
+    if tied:
+        assert abs(got[1][0] * got[1][1] - areas[0]) <= NATIVE_RECT_RTOL * max(areas[0], 1.0)
+        return
+    np.testing.assert_allclose(np.hstack(got[:2] + (got[2],)), np.hstack(ref[:2] + (ref[2],)),
+                               rtol=NATIVE_RECT_RTOL, atol=NATIVE_RECT_RTOL)
+
+
+def test_native_geometry_matches_the_numpy_versions(monkeypatch):
+    """``native/geometry.cpp`` on fuzzed masks, small and 240×320: the contours
+    equal the numpy tracer's (0 differing points) and cv2's; the largest-only pick
+    is cv2's (the polygon with the most points, the first of equals in cv2's
+    order); the calipers as ``_assert_same_rect`` says, on the polygons, on the
+    masks' pixels and on fuzzed point sets; RLE equal."""
+    import cv2
+
+    from yolo_puncture_tpu_torch import native
+
+    rng = np.random.default_rng(21)
+    big = [ndimage.zoom(rng.random((24, 32)), 10, order=1) > t for t in (0.45, 0.55, 0.65)]
+    masks = _masks("speckle", 31) + _masks("blobs", 32) + _masks("rects", 33) + [b.astype(np.uint8) for b in big]
+    monkeypatch.setattr(pgeo, "_HAS_CV2", False)
+    for m in masks:
+        polys = native.trace_contours(m)
+        _assert_same_polys(polys, pgeo._trace_contours_np(m))
+        cv2_polys = [c.reshape(-1, 2).astype(np.float32)
+                     for c in cv2.findContours(m, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)[0]]
+        _assert_same_polys(polys, cv2_polys)
+        largest = pgeo.mask_to_polygons(m, largest_only=True)
+        if cv2_polys:
+            np.testing.assert_array_equal(largest, max(cv2_polys, key=len))
+        else:
+            assert largest.shape == (0, 2)
+        for pts in polys + [np.column_stack(np.nonzero(m))]:
+            _assert_same_rect(pts)
+        assert native.rle_encode(m) == pgeo._rle_encoding_np(m)
+    for pts in _point_sets(15):
+        _assert_same_rect(pts)

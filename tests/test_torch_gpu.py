@@ -19,18 +19,24 @@ import torch
 # shadow ``tests.torch_parity``.  chip_smoke.py lies at the repository's root, where
 # ``python -m pytest`` is run from; it holds every kernel's cases, inputs and limits.
 from chip_smoke import (
+    NEEDLE,
     PROTO_CASES,
+    READOUT_AFFINITY_CASES,
     READOUT_CASES,
     READOUT_FP64_CASES,
     TAIL_CASES,
+    BarDetector,
+    bar_frames,
     check_decode_tail_case,
     check_proto_decode_case,
     check_pipeline_step,
+    check_readout_affinity_case,
     check_readout_case,
     check_readout_fp64_case,
     needle_clip,
     pipeline_conf,
     pipeline_step_numpy,
+    run_track_app,
 )
 from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
@@ -145,6 +151,19 @@ def test_memory_readout_fp32_kernel_is_fp32_class_on_large_logits(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", READOUT_AFFINITY_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_memory_readout_kernel_with_bf16_affinity_matches_plain_version(cuda, case, dtype, scale):
+    """``affinity_bf16=True`` (each logit rounded to bf16, as the bench's tracker
+    reads memory): ``chip_smoke.py``'s cases and ``readout_affinity_limit``, and the
+    kernel nearer the rounded plain version than the unrounded one."""
+    before = memory_readout.launches
+    check_readout_affinity_case(case, dtype, scale, cuda, seed=5)
+    assert memory_readout.launches == before + 1
+
+
+@pytest.mark.gpu
 def test_memory_readout_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = torch.zeros(4, 64, device=cuda), torch.zeros(6, 64, device=cuda), torch.zeros(2, 6, 128, device=cuda)
     ok = torch.ones(6, dtype=torch.bool, device=cuda)
@@ -233,3 +252,38 @@ def test_pipeline_step_on_the_card_matches_the_cpu(cuda):
     got = pipeline_step_numpy(gpu, frames, conf)
     assert proto_decode.launches == before + 1
     check_pipeline_step(got, pipeline_step_numpy(cpu, frames, conf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [
+    ["--temporal_setting", "online", "--disable_long_term"],
+    ["--align_voting", "propagate"],
+    ["--batch_propagation", "--align_voting", "affinity", "--disable_long_term"],
+], ids=["online", "propagate", "batched-affinity"])
+def test_track_video_on_the_card_matches_the_cpu(cuda, tmp_path, mode):
+    """``chip_smoke.py``'s track_video phase at a small depth: 8 frames of 720p with
+    the bar detector, the tracker at 128×224 with the needle checkpoint, on the card
+    and on the CPU: the same segments in ``pred.json`` (areas within 1 %), id maps
+    ≥ 99.9 % equal, the tail kernel launched, the readout kernel where long-term
+    memory is off; then the seeded YOLOv10n at imgsz 64 as the detector launches
+    ``proto_decode``."""
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
+
+    frames, _ = bar_frames(8, 720, 1280, seed=4)
+    argv = ["--video_name", "bar", "--img_path", "decoded-frames", "--model", str(tmp_path / "yolo10n-seg"),
+            "--size", "120", "--imgsz", "64", "--tracker_weights", NEEDLE, "--num_voting_frames", "2",
+            "--detection_every", "3"] + mode
+    counts = (memory_readout.launches, decode_tail.launches)
+    gpu = run_track_app(argv + ["--output", str(tmp_path / "gpu")], frames, BarDetector())
+    assert decode_tail.launches > counts[1]
+    assert (memory_readout.launches > counts[0]) == ("--disable_long_term" in mode)
+    cpu = run_track_app(argv + ["--output", str(tmp_path / "cpu")], frames, BarDetector(), device="cpu")
+    for g, c in zip(gpu["pred"]["annotations"], cpu["pred"]["annotations"]):
+        assert [s["id"] for s in g["segments_info"]] == [s["id"] for s in c["segments_info"]] == [1]
+        for gs, cs in zip(g["segments_info"], c["segments_info"]):
+            assert abs(gs["area"] - cs["area"]) <= 0.01 * cs["area"]
+    for g, c in zip(gpu["ids"], cpu["ids"]):
+        assert (g == c).mean() >= 0.999
+    before = proto_decode.launches
+    run_track_app(argv + ["--output", str(tmp_path / "yolo")], frames)
+    assert proto_decode.launches > before

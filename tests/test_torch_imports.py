@@ -49,7 +49,9 @@ def test_walk_finds_every_layer():
               "ops.kernels.decode_tail", "ops.resize", "track", "track.network", "track.memory", "track.core",
               "registry", "utils.config", "utils.profiling", "utils.transform", "ops.signal", "ops.geometry",
               "analytics", "analytics.keyframe", "analytics.speed", "analytics.stats", "models.efficientnet",
-              "tasks", "tasks.classify", "pipeline", "pipeline.video", "pipeline.runner"):
+              "tasks", "tasks.classify", "pipeline", "pipeline.video", "pipeline.runner", "track.saver",
+              "utils.png", "utils.plotting", "native", "apps", "apps.track_video", "apps.auto_speed_calc",
+              "apps.evaluate_speed", "apps.speed_freq"):
         assert f"yolo_puncture_tpu_torch.{m}" in names
 
 
@@ -123,3 +125,53 @@ def test_pipeline_runs_without_cv2_or_yaml_and_wants_a_card():
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("pipeline without cv2 or yaml")
+
+
+def test_track_video_runs_without_cv2_pil_or_matplotlib(tmp_path):
+    """With jax, flax, yolo_puncture_tpu, cv2, PIL and matplotlib all out of reach,
+    as on the machine with the card: the tracking app's ``process_frame`` and
+    ``process_video_batched`` run decoded frames through a stub detector and the
+    tracker on the CPU, the saver writes its PNGs (``utils/png.py``) and
+    ``pred.json``, and the host geometry takes the C++ tracer."""
+    code = (
+        "import importlib, json, os, sys\n"
+        f"for m in {FORBIDDEN + ('cv2', 'PIL', 'matplotlib')!r}: sys.modules[m] = None\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from yolo_puncture_tpu_torch.apps import track_video as tv\n"
+        "from yolo_puncture_tpu_torch.ops.geometry import mask_to_polygons\n"
+        "class Res:\n"
+        "    def __init__(self, m):\n"
+        "        self.masks = type('M', (), {'data': [m], '__len__': lambda s: 1})()\n"
+        "        self.boxes = type('B', (), {'conf': [0.95], 'cls': [0]})()\n"
+        "class Det:\n"
+        "    def predict(self, im, **kw):\n"
+        "        return [Res((np.asarray(im).max(-1) > 200).astype(np.float32))]\n"
+        "frames = np.random.default_rng(0).integers(0, 60, (6, 48, 80, 3)).astype(np.uint8)\n"
+        "for i, f in enumerate(frames): f[10:30, 10 + 3 * i:40 + 3 * i] = 230\n"
+        "pairs = [(f, f'{i:03d}.jpg') for i, f in enumerate(frames)]\n"
+        f"out = {str(tmp_path)!r}\n"
+        "for batched, setting in ((False, 'online'), (True, 'semionline')):\n"
+        "    args = tv.parse_args(['--video_name', 'v', '--img_path', 'unused', '--size', '32', '--output',\n"
+        "                          os.path.join(out, setting), '--temporal_setting', setting,\n"
+        "                          '--detection_every', '3', '--num_voting_frames', '2']\n"
+        "                         + (['--batch_propagation'] if batched else []))\n"
+        "    cfg = tv.make_config(args, len(pairs))\n"
+        "    tracker = tv.TrackerCore(config=cfg, image_size=(32, 64), max_objects=2, device='cpu')\n"
+        "    tracker.next_voting_frame = args.num_voting_frames - 1\n"
+        "    tv.track(args, tracker, Det(), pairs)\n"
+        "    pred = json.load(open(os.path.join(out, setting, 'pred.json')))\n"
+        "    assert len(pred['annotations']) == 6, pred\n"
+        "    pngs = os.listdir(os.path.join(out, setting, 'Annotations', 'v'))\n"
+        "    assert sorted(pngs) == [f'{i:03d}.png' for i in range(6)], pngs\n"
+        "sq = np.zeros((20, 20), np.uint8); sq[5:15, 5:15] = 1\n"
+        "assert mask_to_polygons(sq, largest_only=True).tolist() == [[5, 5], [5, 14], [14, 14], [14, 5]]\n"
+        "leaked = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'PIL', 'matplotlib')\n"
+        "                and sys.modules[k] is not None)\n"
+        "assert not leaked, leaked\n"
+        "print('tracked without cv2, PIL or matplotlib')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("tracked without cv2, PIL or matplotlib")

@@ -206,3 +206,37 @@ def test_compensated_tf32_is_fp32_class_and_single_tf32_is_not(scheme, within):
     assert (err <= 2e-6) == within, err
     if not within:
         assert err > 2e-4
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_with_bf16_affinity_matches_the_dense_jax_readout(dtype, scale):
+    """``affinity_bf16=True``: the plain version rounds each logit as the JAX dense
+    readout rounds its (Q, M) affinity, bf16(bf16(q · k) · bf16(Ck^-0.5)).  fp32:
+    the logits equal JAX's bit for bit on these inputs, and the readouts agree
+    within 2e-5 (sums in another order); JAX's readout without the option is
+    more than a hundred times farther.  bf16: within 2^-7 of max(1, |ref|) (the
+    JAX readout sums the bf16-rounded weights, the plain version the fp32 ones,
+    and both round the output), and nearer than JAX's readout without the
+    option.  ``scale`` 2 makes the softmax peaked, where a rounded logit moves
+    its weight the most."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import readout_logits
+
+    q, k, v, ok = _inputs(256, 1024, 4, 128, "random", seed=7)
+    q, k = q * np.float32(scale), k * np.float32(scale)
+    jt = getattr(jnp, dtype)
+    jax_in = [jnp.asarray(a).astype(jt) for a in (q, k, v)]
+    with_flag, without = (np.asarray(jax_dense(*jax_in, jnp.asarray(ok), affinity_bf16=f).astype(jnp.float32))
+                          for f in (True, False))
+    t = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    got = memory_readout(*t, torch.from_numpy(ok), affinity_bf16=True).float().numpy()
+    err, err_without = np.abs(got - with_flag), np.abs(got - without)
+    if dtype == "float32":
+        jax_logits = jnp.einsum("qc,mc->qm", *jax_in[:2], preferred_element_type=jnp.bfloat16) * jnp.asarray(
+            0.125, jnp.bfloat16)
+        np.testing.assert_array_equal(readout_logits(t[0], t[1], True).numpy(),
+                                      np.asarray(jax_logits.astype(jnp.float32)))
+        assert err.max() <= 2e-5 and err_without.max() > 100 * err.max(), (err.max(), err_without.max())
+    else:
+        assert (err <= 2.0 ** -7 * np.maximum(np.abs(with_flag), 1.0)).all(), err.max()
+        assert err.mean() < err_without.mean(), (err.mean(), err_without.mean())

@@ -264,8 +264,8 @@ def test_constructor_contract():
     if not torch.cuda.is_available():                               # no card: the CPU must be asked for
         with pytest.raises(RuntimeError):
             tc.TrackerCore(image_size=(H, W))
-    with pytest.raises(NotImplementedError):
-        tc.TrackerCore(image_size=(H, W), config={"align_voting": "propagate"}, device="cpu")
+    for align in ("propagate", "affinity"):                          # ported: accepted, as in the JAX package
+        assert tc.TrackerCore(image_size=(H, W), config={"align_voting": align}, device="cpu").config["align_voting"]
     with pytest.raises(NotImplementedError):
         tc.TrackerCore(image_size=(H, W), quantized_memory=True, enable_long_term=False, device="cpu")
     with pytest.raises(ValueError):

@@ -6,10 +6,15 @@ Mirrors the JAX package's layout so each counterpart is easy to find:
   ops/       letterbox, NMS / v10 top-k, mask decode and paste, contours
   ops/kernels/  hand-written CUDA kernels (sources in csrc/) with plain PyTorch versions
   predict/   ultralytics-compatible ``YOLO(weights).predict`` → Results / Boxes / Masks
-  utils/     weight bridge (JAX variables, ultralytics .pt) and device choice
+  track/     the mask tracker, its memory and the result saver
+  pipeline/  the needle-speed video pipeline; analytics/, tasks/ its host analytics and classifier
+  native/    the host geometry in C++ (contours, min-area rectangle, RLE), built with g++
+  apps/      the entry points: track_video, auto_speed_calc, evaluate_speed, speed_freq
+  utils/     weight bridge (JAX variables, ultralytics .pt), device choice, PNG writer, plots
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.  The
-package imports torch, numpy and scipy only: never jax, flax or yolo_puncture_tpu.
+package imports torch, numpy and scipy only (cv2, PIL and matplotlib where a
+file must be decoded or a plot drawn): never jax, flax or yolo_puncture_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,14 @@
+"""The port's entry points, counterparts of the repository's ``apps/``:
+
+  track_video      YOLO detections carried through a video by the mask tracker
+                   (online or semi-online with voting), ``Annotations/`` PNGs and
+                   ``pred.json``;
+  auto_speed_calc  the batch needle-speed CLI over a video or a directory;
+  evaluate_speed   the speed pipeline against hand-labelled key frames;
+  speed_freq       speed histograms from stored lengths.
+
+Each module has the JAX app's flags and output lines; its ``main(argv,
+device=None)`` runs on the card unless ``device="cpu"`` is passed (there is no
+device flag, as the JAX CLIs have none).  ``python -m
+yolo_puncture_tpu_torch.apps.<name> --help`` lists the flags.
+"""

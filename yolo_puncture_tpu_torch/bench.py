@@ -18,8 +18,8 @@ One step takes a batch of B seeded BGR frames of 720×1280
     ``bench.py``'s fused step: ``TrackerCore`` at
     ``reference_tracker_geometry((720, 1280))`` = 480×864, ``mem_frames=8``,
     ``mem_every=4``, long-term memory off, bf16, seeded random weights, slot 0
-    active (``bench.py`` also sets ``affinity_bf16=True``, which has no effect
-    on the readout kernel: ``track/core.py``).  It reads the raw frames resized
+    active, ``affinity_bf16=True`` as ``bench.py`` sets it (the readout kernel
+    rounds its logits to bf16).  It reads the raw frames resized
     as ``jax.image.resize(frames_bf16, (B, 480, 864, 3), "bilinear") / 255``
     (``ops/resize.py resize_bilinear``), encodes all B keys, then
     ``propagate_frames(window=4, exact=True, full_res_ids=True)``: 32 windows,
@@ -49,7 +49,7 @@ What of ``bench.py`` is not here, and why:
     (``BENCH_PALLAS_TAIL``), the sub-pixel tail (``BENCH_SUBPIX``), and the
     proto-resolution decode trials (``BENCH_PALLAS_PROTO``, ``BENCH_PROTO_RES``);
   * ``BENCH_MAXOBJ``, ``BENCH_WINDOW``, ``BENCH_EXACT``, ``BENCH_AFF16``, kept at
-    their defaults;
+    their defaults (2, 4, exact, on);
   * a choice of device: the step runs on the card (``run_bench(device="cpu")``
     runs it on the CPU, at the frame size ``FRAME_HW`` and the tracker's short
     side ``MIN_SIDE`` of this module);
@@ -94,7 +94,8 @@ def bench_models(imgsz: int = 640, track: bool = True, device=None):
     tracker = None
     if track:
         tracker = build_bench_tracker(imgsz, dtype=torch.bfloat16, min_side=MIN_SIDE, window=WINDOW,
-                                      frame_hw=FRAME_HW, device=dev, max_objects=2, full_res_ids=True)
+                                      frame_hw=FRAME_HW, device=dev, max_objects=2, full_res_ids=True,
+                                      affinity_bf16=True)
     return model, tracker
 
 

@@ -16,6 +16,11 @@
 //   query (Q, 64)   keys (M, 64)   values (No, M, 128)   valid (M,) one byte each
 //   out (No, Q, 128) in T.
 //
+// With affinity_bf16 each logit is rounded as the JAX package's dense readout
+// rounds its (Q, M) affinity (yolo_puncture_tpu/track/network.py
+// memory_readout_dense): s_m = bf16(bf16(dot) * bf16(Ck^-0.5)), for fp32 and
+// bf16 inputs alike.  The max, the sum and the accumulators stay fp32.
+//
 // Bound: operations.  At the serving window (Q = 8100, M = 12968 of which 12960
 // valid, No = 4) the function needs 2*Q*M*(64 + No*128) = 121 GFLOP against
 // 24 MB (bf16) or 49 MB (fp32) of inputs and outputs:
@@ -97,6 +102,9 @@
 namespace {
 
 constexpr int CK = 64;         // key width
+// a power of 4, so that Ck^-0.5 is a power of two: the bf16 affinity's scale is then
+// exact (online_softmax)
+static_assert(CK > 0 && (CK & (CK - 1)) == 0 && (CK & 0x55555555) != 0, "Ck must be a power of 4");
 constexpr int CV = 128;        // value width
 constexpr int TM = 64;         // memory elements per tile (one validity word)
 constexpr int TQ = 128;        // query rows per block
@@ -158,8 +166,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // g = lane / 4 and c = lane % 4, s[4j + 2r + e] is row g + 8r of the warp's 16
 // rows, column 8j + 2c + e.  Scales and masks the logits (bit m of mask: column
 // m is valid), updates the running max and sum of the thread's two rows, leaves
-// p in s and the factor for the accumulator in corr.
-template <int NT>
+// p in s and the factor for the accumulator in corr.  Logits are in base-2
+// units: s * c2 with c2 = Ck^-0.5 * log2(e); or, with kAffinity (the bf16
+// affinity), bf16(s) * c2.  That is bf16(bf16(s) * bf16(Ck^-0.5)) * log2(e) bit
+// for bit: Ck^-0.5 is a power of two, so bf16(Ck^-0.5) = Ck^-0.5, the product
+// with it is exact and needs no second rounding, and c2 is log2(e) scaled
+// exactly.  The option is a template parameter: as a run-time branch in this loop it cost the
+// bf16 kernel a fifth of its time with the option off (0.326 against 0.271 ms
+// at the serving window on an H100 80GB HBM3 at 700 W).
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+template <int NT, bool kAffinity>
 __device__ __forceinline__ void online_softmax(float (&s)[4 * NT], unsigned long long mask, float c2,
                                                float (&m_run)[2], float (&l_run)[2], float (&corr)[2]) {
   const bool all_valid = mask == (NT == 8 ? ~0ull : (1ull << (8 * NT % 64)) - 1ull);
@@ -171,7 +188,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[4 * NT], unsigned long
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float v = s[4 * j + 2 * r + e] * c2;
+        float v = s[4 * j + 2 * r + e];
+        v = kAffinity ? round_bf16(v) * c2 : v * c2;
         if (!all_valid && !((mine >> (8 * j + e)) & 1ull)) v = -INFINITY;
         s[4 * j + 2 * r + e] = v;
         mx = fmaxf(mx, v);
@@ -474,6 +492,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+template <bool kAffinity>
 __global__ void __launch_bounds__(kThreads, 1)
 readout_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, const unsigned long long* __restrict__ words,
@@ -548,7 +567,7 @@ readout_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
       pin(s);
 
       float corr[2];
-      online_softmax<8>(s, mask, c2, m_run, l_run, corr);
+      online_softmax<8, kAffinity>(s, mask, c2, m_run, l_run, corr);
       uint32_t p[16];  // the A fragments of the four k16 steps
 #pragma unroll
       for (int i = 0; i < 16; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
@@ -675,6 +694,7 @@ __device__ __forceinline__ void wgmma_m64n64k8_rs(float (&d)[32], const float* a
         "r"(__float_as_uint(a[3])), "l"(desc_b), "r"(accumulate));
 }
 
+template <bool kAffinity>
 __global__ void __launch_bounds__(kThreads, 1)
 readout_fp32_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, const unsigned long long* __restrict__ words,
@@ -762,7 +782,7 @@ readout_fp32_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
       pin(s);
 
       float corr[2];
-      online_softmax<4>(s, mask, c2, m_run, l_run, corr);
+      online_softmax<4, kAffinity>(s, mask, c2, m_run, l_run, corr);
       // A fragments of the four k8 steps: rows g and g + 8 at k slot c, then at slot c + 4
       float ph[16], pl[16];
 #pragma unroll
@@ -854,7 +874,8 @@ cudaError_t allow_shared(Kernel kernel, int bytes) {
 extern "C" {
 
 // Launches on `stream`: the validity pre-pass, for fp32 the split of the operands,
-// the readout and, if n_split > 1, the combine.  Returns the CUDA error code (0 on
+// the readout and, if n_split > 1, the combine.  affinity_bf16 != 0 rounds the
+// logits to bf16 as the header says, for either type.  Returns the CUDA error code (0 on
 // success).  Compiled for Ck == 64 and Cv == 128; the Python wrapper refuses other
 // widths before calling.  Scratch, all of it written before it is read:
 //   words     ceil(M / 64) 64-bit words
@@ -863,7 +884,7 @@ extern "C" {
 // No <= 131070.
 int memory_readout(const void* query, const void* keys, const void* values, const void* valid, void* out,
                    void* words, void* partials, void* split, int Q, int M, int No, int Ck, int Cv, int is_bf16,
-                   int n_split, void* stream) {
+                   int affinity_bf16, int n_split, void* stream) {
   const int n_tiles = (M + TM - 1) / TM;
   const int pairs = (No + 1) / 2;
   if (Ck != CK || Cv != CV || Q <= 0 || M <= 0 || No <= 0 || pairs > 65535 || n_split < 1 || n_split > 65535 ||
@@ -888,11 +909,12 @@ int memory_readout(const void* query, const void* keys, const void* values, cons
     const TensorMap map_k(keys, true, 2, {CK, uM, 1, 1}, {CK, TM, 1, 1});
     const TensorMap map_v(values, true, 3, {CV, uM, uNo, 1}, {64, TM, 1, 1});
     if (!map_q.ok || !map_k.ok || !map_v.ok) return static_cast<int>(cudaErrorInvalidValue);
-    err = allow_shared(bf::readout_bf16_kernel, bf::kSmemBytes);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    const auto kernel = affinity_bf16 ? bf::readout_bf16_kernel<true> : bf::readout_bf16_kernel<false>;
+    err = allow_shared(kernel, bf::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    bf::readout_bf16_kernel<<<grid, kThreads, bf::kSmemBytes, s>>>(
-        map_q.map, map_k.map, map_v.map, w, static_cast<__nv_bfloat16*>(out), part_acc, part_stats, Q, No, n_tiles,
-        tiles_per_split, c2);
+    kernel<<<grid, kThreads, bf::kSmemBytes, s>>>(map_q.map, map_k.map, map_v.map, w, o, part_acc, part_stats, Q, No,
+                                                  n_tiles, tiles_per_split, c2);
   } else {
     const int Mp = n_tiles * TM;
     const size_t nq = static_cast<size_t>(Q) * CK, nk = static_cast<size_t>(M) * CK;
@@ -908,11 +930,12 @@ int memory_readout(const void* query, const void* keys, const void* values, cons
     const TensorMap map_k(k2, false, 3, {CK, uM, 2, 1}, {32, fp::TK, 1, 1});
     const TensorMap map_v(v2, false, 4, {static_cast<cuuint64_t>(Mp), CV, uNo, 2}, {fp::TK, CV, 2, 1});
     if (!map_q.ok || !map_k.ok || !map_v.ok) return static_cast<int>(cudaErrorInvalidValue);
-    err = allow_shared(fp::readout_fp32_kernel, fp::kSmemBytes);
+    float* o = static_cast<float*>(out);
+    const auto kernel = affinity_bf16 ? fp::readout_fp32_kernel<true> : fp::readout_fp32_kernel<false>;
+    err = allow_shared(kernel, fp::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fp::readout_fp32_kernel<<<grid, kThreads, fp::kSmemBytes, s>>>(
-        map_q.map, map_k.map, map_v.map, w, static_cast<float*>(out), part_acc, part_stats, Q, No, n_tiles,
-        tiles_per_split, c2);
+    kernel<<<grid, kThreads, fp::kSmemBytes, s>>>(map_q.map, map_k.map, map_v.map, w, o, part_acc, part_stats, Q, No,
+                                                  n_tiles, tiles_per_split, c2);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);

@@ -2,15 +2,19 @@
 
 Counterpart of ``yolo_puncture_tpu/ops/geometry.py``:
   * ``mask_to_polygons``: ``cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)``
-    when cv2 is installed, else a numpy/scipy border tracer that gives the same
-    polygons, in the same order.  (The JAX package's own fallback tracer starts
-    its walk the wrong way round and returns a 2×2 loop for a filled square; the
-    port does not copy it.)
+    when cv2 is installed, else the C++ border tracer of ``native/geometry.cpp``
+    that gives the same polygons, in the same order, and keeps cv2's choice of
+    the largest (the most points).  ``_trace_contours_np`` is its plain numpy
+    version.  (The JAX package's own fallback tracers differ: its numpy one
+    starts its walk the wrong way round and returns a 2×2 loop for a filled
+    square, its C++ one keeps the component with the most border pixels; the
+    port copies neither.)
   * ``min_rect_len`` / ``min_rect_len_mask``: the long side and aspect ratio of
-    the minimum-area rotated rectangle (convex hull + rotating calipers, in
-    numpy; the JAX package's C++ fast path is not ported);
-  * polygon fill, binary-mask overlay, RLE and polygon encodings, the ROI box
-    overlay and the SAM-mask ranking filter.  Where cv2 is missing, drawing
+    the minimum-area rotated rectangle (convex hull + rotating calipers) in C++
+    (``native``), with ``_min_area_rect_np`` its plain numpy version;
+  * polygon fill, binary-mask overlay, RLE (C++, ``_rle_encoding_np`` the plain
+    version) and polygon encodings, the ROI box overlay and the SAM-mask
+    ranking filter.  Where cv2 is missing, drawing
     takes the JAX package's numpy branches.
 """
 
@@ -19,6 +23,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from yolo_puncture_tpu_torch import native
 
 try:
     import cv2  # host-only; contours and drawing use it when present
@@ -35,7 +41,7 @@ def mask_to_polygons(binary_mask: np.ndarray, largest_only: bool = False):
         contours, _ = cv2.findContours(m, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
         polys = [c.reshape(-1, 2).astype(np.float32) for c in contours]
     else:
-        polys = _trace_contours_np(m)
+        polys = native.trace_contours(m, largest_only)
     if not polys:
         return [] if not largest_only else np.zeros((0, 2), np.float32)
     if largest_only:
@@ -132,8 +138,15 @@ def convex_hull(points: np.ndarray) -> np.ndarray:
 
 def min_area_rect(points: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, float], float]:
     """Minimum-area enclosing rotated rectangle as ((cx, cy), (w, h), angle_deg),
-    the structure ``cv2.minAreaRect`` returns.  The optimal rectangle has a side
-    collinear with a hull edge, so every edge angle (mod 90°) is tried at once."""
+    the structure ``cv2.minAreaRect`` returns: ``native.min_area_rect``, the C++
+    form of ``_min_area_rect_np``."""
+    return native.min_area_rect(points)
+
+
+def _min_area_rect_np(points: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, float], float]:
+    """Plain numpy version of ``min_area_rect``.  The optimal rectangle has a
+    side collinear with a hull edge, so every edge angle (mod 90°) is tried at
+    once; the first least area wins."""
     pts = np.asarray(points, dtype=np.float64).reshape(-1, 2)
     hull = convex_hull(pts)
     if len(hull) == 0:
@@ -259,8 +272,8 @@ def create_roi_mask(frame_shape, x1, y1, x2, y2, label: str) -> np.ndarray:
 
 def rle_encoding(binary_segment: np.ndarray) -> list:
     """Binary mask → run-length list [start, length, start, length, …] (1-based
-    starts, row-major)."""
-    return _rle_encoding_np(binary_segment)
+    starts, row-major), in C++ (``native.rle_encode``)."""
+    return native.rle_encode(binary_segment)
 
 
 def _rle_encoding_np(binary_segment: np.ndarray) -> list:

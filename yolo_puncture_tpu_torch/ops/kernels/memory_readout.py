@@ -15,6 +15,12 @@ With bf16 inputs the weights are rounded to bf16 before they multiply the values
 while their sum is taken from the fp32 weights: what the TPU kernel does, and
 what the tensor cores need.
 
+``affinity_bf16=True`` rounds every logit as the JAX package's dense readout
+rounds its (Q, M) affinity (``track/network.py memory_readout_dense``):
+``bf16(bf16(q · k) · bf16(Ck^-0.5))``, for fp32 and bf16 inputs alike; the max,
+the sum and the accumulators stay fp32.  ``TrackerCore(affinity_bf16=True)``
+(the bench's tracker) reads memory so.
+
 The kernel lives in ``csrc/memory_readout.cu``; its header states the bounds
 and the design (one block per 128 queries and object pair, the softmax shared
 by the pair, tiles with no valid element skipped, ``wgmma`` fed by TMA: bf16 as
@@ -40,13 +46,24 @@ TILE_M, TILE_Q = 64, 128   # memory elements per validity word; query rows per b
 MAX_SPLIT = 16             # most blocks that share one query tile's memory
 
 
-def memory_readout_reference(query_key, mem_keys, mem_values, mem_valid) -> torch.Tensor:
+def readout_logits(query_key, mem_keys, affinity_bf16: bool = False) -> torch.Tensor:
+    """The readout's fp32 logits (Q, M): ``q · kᵀ · Ck^-0.5``, or with
+    ``affinity_bf16`` the product rounded to bf16, times bf16(Ck^-0.5), rounded
+    to bf16 again, as ``network.memory_readout_dense`` rounds them."""
+    scale = query_key.shape[-1] ** -0.5
+    aff = torch.matmul(query_key.float(), mem_keys.float().T)
+    if affinity_bf16:
+        return (aff.bfloat16() * torch.tensor(scale, dtype=torch.bfloat16)).float()
+    return aff * scale
+
+
+def memory_readout_reference(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version: masked full softmax in fp32, two matmuls.
     query_key (Q, Ck); mem_keys (M, Ck); mem_values (No, M, Cv); mem_valid (M,)
     bool → (No, Q, Cv) in the values' type.  bf16 values are multiplied by
-    weights rounded to bf16; the denominator sums the fp32 weights."""
-    scale = query_key.shape[-1] ** -0.5
-    aff = torch.matmul(query_key.float(), mem_keys.float().T) * scale      # (Q, M)
+    weights rounded to bf16; the denominator sums the fp32 weights.  The logits
+    are ``readout_logits``."""
+    aff = readout_logits(query_key, mem_keys, affinity_bf16)                # (Q, M)
     valid = mem_valid.bool()[None, :]
     aff = aff.masked_fill(~valid, float("-inf"))
     m = aff.max(dim=-1, keepdim=True).values
@@ -68,12 +85,11 @@ def memory_readout_partials(query_key, mem_keys, mem_values, mem_valid, n_split:
     M = mem_keys.shape[0]
     n_tiles = -(-M // TILE_M)
     per = -(-n_tiles // n_split) * TILE_M
-    scale = query_key.shape[-1] ** -0.5
     ms, ls, accs = [], [], []
     for z in range(n_split):
         lo, hi = min(z * per, M), min((z + 1) * per, M)
         valid = mem_valid[lo:hi].bool()[None, :]
-        aff = torch.matmul(query_key.float(), mem_keys[lo:hi].float().T) * scale
+        aff = readout_logits(query_key, mem_keys[lo:hi])
         aff = aff.masked_fill(~valid, float("-inf"))
         m = aff.max(dim=-1).values if hi > lo else aff.new_full(aff.shape[:1], float("-inf"))
         shift = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -100,7 +116,7 @@ def combine_partials(m, l, acc, dtype=torch.float32) -> torch.Tensor:
 def kernel_fn():
     """The C entry point ``memory_readout`` (built on first use), argtypes set."""
     fn = _build.load("memory_readout").memory_readout
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,7 +146,8 @@ def kernel_scratch(query_key, mem_values, n_split: int):
     return words, partials, split
 
 
-def kernel_args(query_key, mem_keys, mem_values, mem_valid, out, scratch, n_split: int):
+def kernel_args(query_key, mem_keys, mem_values, mem_valid, out, scratch, n_split: int,
+                affinity_bf16: bool = False):
     """Arguments of ``kernel_fn()`` for checked tensors, on the current stream."""
     Q, Ck = query_key.shape
     No, M, Cv = mem_values.shape
@@ -139,7 +156,7 @@ def kernel_args(query_key, mem_keys, mem_values, mem_valid, out, scratch, n_spli
         query_key.data_ptr(), mem_keys.data_ptr(), mem_values.data_ptr(), mem_valid.data_ptr(),
         out.data_ptr(), words.data_ptr(), None if partials is None else partials.data_ptr(),
         None if split is None else split.data_ptr(),
-        Q, M, No, Ck, Cv, int(query_key.dtype == torch.bfloat16), n_split,
+        Q, M, No, Ck, Cv, int(query_key.dtype == torch.bfloat16), int(affinity_bf16), n_split,
         torch.cuda.current_stream(query_key.device).cuda_stream,
     )
 
@@ -160,16 +177,17 @@ def _check(query_key, mem_keys, mem_values, mem_valid):
             raise ValueError(f"{name} is on {t.device}, the query on {query_key.device}")
 
 
-def memory_readout(query_key, mem_keys, mem_values, mem_valid) -> torch.Tensor:
+def memory_readout(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bool = False) -> torch.Tensor:
     """query_key (Q, Ck); mem_keys (M, Ck); mem_values (No, M, Cv); mem_valid
-    (M,) bool → readout (No, Q, Cv) in the values' type.
+    (M,) bool → readout (No, Q, Cv) in the values' type; ``affinity_bf16``
+    rounds the logits to bf16 (``readout_logits``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32 or
     bf16, all contiguous and 16-byte aligned, Ck == 64, Cv == 128) and anything
     else raises.  ``split_for`` says how many blocks share the memory."""
     _check(query_key, mem_keys, mem_values, mem_valid)
     if query_key.device.type == "cpu":
-        return memory_readout_reference(query_key, mem_keys, mem_values, mem_valid)
+        return memory_readout_reference(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
     if query_key.device.type != "cuda":
         raise ValueError(f"memory_readout runs on cpu or cuda, not {query_key.device}")
     dtype = mem_values.dtype
@@ -197,7 +215,8 @@ def memory_readout(query_key, mem_keys, mem_values, mem_valid) -> torch.Tensor:
     n_split = split_for(Q, M, query_key.device)
     with torch.cuda.device(query_key.device):
         scratch = kernel_scratch(query_key, mem_values, n_split)
-        rc = kernel_fn()(*kernel_args(query_key, mem_keys, mem_values, mem_valid, out, scratch, n_split))
+        rc = kernel_fn()(*kernel_args(query_key, mem_keys, mem_values, mem_valid, out, scratch, n_split,
+                                      affinity_bf16))
     if rc != 0:
         raise RuntimeError(f"memory_readout kernel launch failed: {_build.error_string('memory_readout', rc)}")
     memory_readout.launches += 1

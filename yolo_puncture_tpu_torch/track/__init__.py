@@ -1,5 +1,7 @@
-"""The mask tracker of the port: ``TrackerCore`` and its memory, and the
-streaming tracker of the benchmark (``build_bench_tracker``)."""
+"""The mask tracker of the port: ``TrackerCore`` and its memory, the result
+saver of the tracking app (``ResultSaver``, ``flush_buffer``,
+``get_input_frame_for_deva``), and the streaming tracker of the benchmark
+(``build_bench_tracker``)."""
 
 from yolo_puncture_tpu_torch.ops.resize import resize_bilinear
 from yolo_puncture_tpu_torch.track.core import (  # noqa: F401
@@ -9,6 +11,11 @@ from yolo_puncture_tpu_torch.track.core import (  # noqa: F401
     TrackerCore,
 )
 from yolo_puncture_tpu_torch.track.memory import MemoryState, init_memory  # noqa: F401
+from yolo_puncture_tpu_torch.track.saver import (  # noqa: F401
+    ResultSaver,
+    flush_buffer,
+    get_input_frame_for_deva,
+)
 
 
 def reference_tracker_geometry(frame_hw, min_side: int = 480):
@@ -24,7 +31,7 @@ def reference_tracker_geometry(frame_hw, min_side: int = 480):
 
 def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, window: int = 4,
                         frame_hw=(720, 1280), variables=None, device=None, max_objects: int = 4,
-                        full_res_ids: bool = False):
+                        full_res_ids: bool = False, affinity_bf16: bool = False):
     """Streaming propagation over frame batches, the JAX package's benchmark helper.
 
     Returns (initial memory, fn(memory, frames_u8) → (memory, ids)): the caller
@@ -32,7 +39,9 @@ def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, windo
     ``TrackerCore`` at ``reference_tracker_geometry(frame_hw, min_side)`` (480×864
     for 720p), ``max_objects`` slots with slot 0 active, a ring of 8, long-term
     memory off, in ``dtype`` (fp32 by default), with ``variables`` (a seeded
-    random init by default); ``fn.core`` is that tracker.  ``fn`` takes BGR or
+    random init by default), with ``affinity_bf16`` (the readout's logits
+    rounded to bf16, as ``bench.py``'s fused step sets it); ``fn.core`` is that
+    tracker.  ``fn`` takes BGR or
     RGB uint8 frames (B, h0, w0, 3) on the tracker's device, resizes them with
     ``jax.image.resize``'s bilinear in bf16 (``ops/resize.py resize_bilinear``),
     encodes all B keys at once and then, with ``window > 1``, propagates windows
@@ -50,7 +59,7 @@ def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, windo
         image_size=reference_tracker_geometry(frame_hw, min_side),
         max_objects=max_objects, mem_frames=8,
         mem_every=window if window > 1 else 5,
-        enable_long_term=False, dtype=dtype or torch.float32, device=device,
+        enable_long_term=False, dtype=dtype or torch.float32, device=device, affinity_bf16=affinity_bf16,
     )
     active = core.memory.active.clone()
     active[0] = True                      # one active object, so readout and decode do real work

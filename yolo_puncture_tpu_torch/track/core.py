@@ -5,7 +5,10 @@ one frame through memory attention; ``incorporate_detection(image, mask,
 segments_info)`` merges new detections with the propagated objects and writes
 the memory; ``step_batch(images)`` propagates a run of frames in windows of
 ``mem_every``; the temporary buffer and ``vote_in_temporary_buffer`` serve
-semi-online voting.
+semi-online voting, with ``config["align_voting"]`` optionally aligning each
+buffered detection to the keyframe first (``align_mask_to``: one key-affinity
+hop; ``propagate_mask_backward``: the tracker stepped backwards through the
+buffer on a scratch memory).
 
 What differs from the JAX package, on purpose:
 
@@ -22,16 +25,12 @@ What differs from the JAX package, on purpose:
     the kernel does not compute, and stays ``network.memory_readout_dense``;
   * tensors are channel-first (``network.py``); ``write_pos``, ``lt_pos`` and
     ``frame_idx`` are Python ints (``memory.py``);
-  * ``align_voting`` and ``quantized_memory`` are not ported yet and raise;
-  * ``affinity_bf16`` acts on the long-term path only (``memory_readout_dense``,
-    which rounds the (Q, M) affinity to bf16 before the softmax, as the JAX
-    package's readout does).  On the kernel path (long-term off) it has no
-    effect: the kernel takes the softmax of the fp32 logits that its products
-    accumulate and never stores the affinity, so there is no (Q, M) tensor
-    whose traffic the option halves in the JAX package, and rounding the
-    logits would only add error.  A bf16 tracker with ``affinity_bf16=True``
-    therefore differs from the JAX one by that rounding
-    (``tests/test_torch_bench.py`` states the limits).
+  * ``quantized_memory`` is not ported yet and raises;
+  * ``affinity_bf16`` rounds the readout's logits to bf16 before the softmax, as
+    the JAX package's dense readout rounds its (Q, M) affinity: on the
+    long-term path in ``memory_readout_dense``, on the kernel path inside the
+    kernel's online softmax (``ops/kernels/memory_readout``), which never stores
+    the affinity but rounds each logit the same way.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ import numpy as np
 import torch
 
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout as memory_readout_kernel
-from yolo_puncture_tpu_torch.ops.masks import _linear_weight_mat, upsample_bilinear_matmul
+from yolo_puncture_tpu_torch.ops.masks import _linear_weight_mat, _resample, upsample_bilinear_matmul
 from yolo_puncture_tpu_torch.ops.resize import resize_linear_u8, resize_nearest
 from yolo_puncture_tpu_torch.track.memory import MemoryState, consolidate, engaged, init_memory, write_memory
 from yolo_puncture_tpu_torch.track.network import (
@@ -200,8 +199,6 @@ class TrackerCore:
         self.config = config or {}
         if self.config.get("quantized_memory", quantized_memory):
             raise NotImplementedError("quantized_memory (the int8 working ring) is not ported yet")
-        if self.config.get("align_voting", False):
-            raise NotImplementedError("align_voting (mask alignment before voting) is not ported yet")
         self.device = resolve_device(device)
         # exact_windows: the windowed paths thread the sensory GRU through every
         # frame, which is the per-frame step() at windowed throughput; False
@@ -279,7 +276,7 @@ class TrackerCore:
         keys, vals, valid = self._memory_bank(memory)
         if not self.enable_long_term:
             # nothing consumes the usage: the streaming kernel
-            return memory_readout_kernel(q, keys, vals, valid), memory
+            return memory_readout_kernel(q, keys, vals, valid, affinity_bf16=self.affinity_bf16), memory
         readout, usage = memory_readout_dense(q, keys, vals, valid, return_usage=True,
                                               affinity_bf16=self.affinity_bf16)
         T, HW = memory.keys.shape[:2]
@@ -424,6 +421,40 @@ class TrackerCore:
         memory = self._write(memory, key, skips0["f16"], fg_s16)
         return prob_out, memory._replace(frame_idx=memory.frame_idx + 1), det_to_slot
 
+    def _align_impl(self, img_dst, img_src, onehot_src):
+        """Per-object masks from the source frame's coordinates into the
+        destination frame's, by key affinity: the destination's keys, scaled by 4
+        to sharpen the softmax towards one correspondence, read the source's keys
+        with the masks at stride 16 as values of width 1 (``jax.image.resize``'s
+        antialiased bilinear down, the matmul bilinear up).  The readout is the
+        plain dense one, as in the JAX package: the kernel is compiled for values
+        of width 128.  img_* (3, H, W); onehot_src (No, H, W) → (No, H, W) fp32."""
+        keys, _ = self.net.encode_key(torch.stack([img_dst, img_src]))
+        q = keys[0].flatten(1).T * 4.0                                 # destination queries (HW, Ck)
+        k = keys[1].flatten(1).T
+        h, w = self.image_size
+        dev = onehot_src.device
+        wh = _linear_weight_mat(h, self.h16, float(np.float32(self.h16 / h)), 0.0, dev)
+        ww = _linear_weight_mat(w, self.w16, float(np.float32(self.w16 / w)), 0.0, dev)
+        No = onehot_src.shape[0]
+        m16 = _resample(onehot_src, wh, ww).reshape(No, -1, 1).to(keys.dtype)
+        valid = torch.ones(k.shape[0], dtype=torch.bool, device=dev)
+        probs = memory_readout_dense(q, k, m16, valid).reshape(No, self.h16, self.w16)
+        return upsample_bilinear_matmul(probs.float(), h, w)
+
+    def _pack_id_mask(self, mask: np.ndarray):
+        """Integer id mask → (one-hot (No, H, W) fp32, valid (No,), the mask at
+        ``image_size``, its ids), nearest-resized to ``image_size`` if needed."""
+        h, w = self.image_size
+        m = self._resize_id_mask(mask)
+        ids = [i for i in np.unique(m) if i != 0][: self.max_objects]
+        onehot = np.zeros((self.max_objects, h, w), np.float32)
+        valid = np.zeros((self.max_objects,), bool)
+        for j, i in enumerate(ids):
+            onehot[j] = m == i
+            valid[j] = True
+        return onehot, valid, m, ids
+
     def encode_pyramid(self, p3, p4, p5, content_box=None):
         """Shared-backbone encode: detector pyramid (B, C, h, w) → (keys (B, Ck,
         H16, W16), skips).  Needs ``pyramid_adapter=True``."""
@@ -500,6 +531,59 @@ class TrackerCore:
         """Encode one frame to reusable (key, skips) features."""
         with torch.no_grad():
             return self._encode1(self._prep_image(image))
+
+    @torch.no_grad()
+    def propagate_mask_backward(self, images: Sequence[np.ndarray], mask_src: np.ndarray, conf: float = 0.5,
+                                feats: Optional[Sequence] = None) -> np.ndarray:
+        """The id mask ``mask_src`` of ``images[-1]`` in the coordinates of
+        ``images[0]``, by propagation backwards: a scratch memory (zeros of
+        ``self.memory``'s shapes) incorporates the detection at the last frame and
+        steps through ``images[-2], …, images[0]``; a pixel takes an id where
+        that object's slot wins the argmax with probability above ``conf``.
+        ``self.memory`` is left as it was.  ``feats``: the frames' features from
+        ``encode_frame_features``, for callers that run several chains over one
+        buffer."""
+        if len(images) < 2:
+            raise ValueError("propagate_mask_backward needs [dst, …, src], at least two frames")
+        onehot, valid, _, ids = self._pack_id_mask(mask_src)
+        dtype = np.asarray(mask_src).dtype
+        if not ids:
+            return np.zeros(self.image_size, dtype)
+        if feats is None:
+            feats = [self.encode_frame_features(im) for im in images]
+        if len(feats) != len(images):
+            raise ValueError(f"{len(feats)} features for {len(images)} frames")
+        scratch = MemoryState(**{k: torch.zeros_like(v) if torch.is_tensor(v) else 0
+                                 for k, v in vars(self.memory).items()})
+        key_s, skips_s = feats[-1]
+        prob, scratch, det_to_slot = self._incorporate_from_feats(
+            scratch, key_s, skips_s, torch.from_numpy(onehot).to(self.device), torch.from_numpy(valid).to(self.device)
+        )
+        for key, skips0 in reversed(feats[:-1]):
+            prob, scratch = self._step_from_feats(scratch, key, skips0)
+        prob = prob.float().cpu().numpy()                     # (No+1, H, W); channel 0 the background
+        det_to_slot = det_to_slot.cpu().numpy()
+        out = np.zeros(self.image_size, dtype)
+        best = prob.argmax(0)
+        for j, i in enumerate(ids):
+            slot = int(det_to_slot[j])
+            if slot >= 0:
+                out[(best == slot + 1) & (prob[slot + 1] > conf)] = i
+        return out
+
+    @torch.no_grad()
+    def align_mask_to(self, image_dst, image_src, mask_src: np.ndarray) -> np.ndarray:
+        """Integer id mask in the source frame's coordinates → id mask aligned to
+        the destination frame's (ids kept; 0 where no object wins with more than
+        0.4), by one key-affinity hop (``_align_impl``)."""
+        onehot, _, m, ids = self._pack_id_mask(mask_src)
+        probs = self._align_impl(self._prep_image(image_dst), self._prep_image(image_src),
+                                 torch.from_numpy(onehot).to(self.device)).cpu().numpy()
+        out = np.zeros(self.image_size, m.dtype)
+        best, conf = probs.argmax(0), probs.max(0)
+        for j, i in enumerate(ids):
+            out[(best == j) & (conf > 0.4)] = i
+        return out
 
     @torch.no_grad()
     def step(self, image, mask=None, objects=None):
@@ -603,7 +687,12 @@ class TrackerCore:
         """Pixel-majority vote over the buffered detection masks.  Objects are
         anchored to the first frame; one survives if its region is detected
         (IoU > 0.5 with some object) in at least half the buffered frames.
-        Returns (ti, voted mask, segments_info)."""
+        Returns (ti, voted mask, segments_info).
+
+        ``config["align_voting"]`` first moves each buffered detection into the
+        keyframe's coordinates: ``"propagate"`` by ``propagate_mask_backward``
+        through the buffer (every frame encoded once for all chains), any other
+        true value by ``align_mask_to``."""
         if keyframe_selection != "first":
             raise ValueError("only keyframe_selection='first' is supported")
         if not self.frame_buffer:
@@ -612,11 +701,23 @@ class TrackerCore:
         key_mask = np.asarray(keyframe.mask)
         key_infos = list(keyframe.segments_info or [])
         n_frames = len(self.frame_buffer)
+        align = self.config.get("align_voting", False)
+
+        def img_of(fi):
+            return fi.image_np if fi.image_np is not None else fi.image
+
+        feat_cache = ([self.encode_frame_features(img_of(f)) for f in self.frame_buffer]
+                      if align == "propagate" and key_infos else None)
         votes = {j: 1 for j in range(1, len(key_infos) + 1)}
-        for fi in self.frame_buffer[1:]:
+        for i, fi in enumerate(self.frame_buffer[1:], start=1):
             if not votes:
                 break
             m = np.asarray(fi.mask)
+            if align == "propagate":
+                m = self.propagate_mask_backward([img_of(f) for f in self.frame_buffer[:i + 1]], m,
+                                                 feats=feat_cache[:i + 1])
+            elif align:
+                m = self.align_mask_to(img_of(keyframe), img_of(fi), m)
             if m.shape != key_mask.shape:
                 m = resize_nearest(m.astype(np.int32), key_mask.shape)
             for j in list(votes):
