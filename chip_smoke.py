@@ -9,7 +9,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card:
      ``proto_decode`` (soft and binary, pixel counts that leave the 4-pixel
      vectors and the blocks ragged, 1 to 70 instances, box edges on vector
-     boundaries; bf16 at the bf16 detector's, pipeline's and bench's shapes),
+     boundaries, the server's padded batches of 2, 8 and 16; bf16 at the bf16
+     detector's, pipeline's and bench's shapes),
      ``memory_readout`` (fp32 and bf16, ragged shapes, odd
      object counts, the memory split over blocks, a softmax spread over the
      memory and one carried by a few elements; fp32 also against a float64
@@ -45,7 +46,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      alignments, ``--batch_propagation``, ``--amp``; each also with a bar detector
      whose tracked masks must cover the bar; per-frame times fp32 and ``--amp``),
      ``auto_speed_calc``'s pipeline with its output line (3j), and the C++ host
-     geometry against its numpy versions on the pipeline's masks (3k);
+     geometry against its numpy versions on the pipeline's masks (3k); the
+     HTTP server ``apps/serve.py`` (3l: ``Server`` over the fp32 YOLOv10-S on
+     127.0.0.1, 32 PNG uploads of seeded 720×1280 frames from 16 client
+     threads, retina and not, ``max_polygon`` -1/0/2, each response held to a
+     direct ``predict`` of its frame, ``/stats`` showing a mean batch above 1,
+     garbage refused with 400, a JPEG answered through cv2 where cv2 is
+     installed and refused with 400 without it (cv2 blocked for that request),
+     request latency and requests/s); ``yolo_cli predict`` over a directory of PNG files, its lines
+     held to a direct ``predict`` (3m); the app's ``yolo_inference`` in image
+     mode (the seeded YOLO11n seg at 640², retina) and its video mode on the
+     67 needle frames (``annotate_video``: YOLO11n, B3 and U2NETP on 380²
+     crops, ``device_batch=8``), whose start, end and speed must be the
+     pipeline's own, with frames/s and U²-Net's share (3n); the web UI's
+     ``/analyze`` in image mode with a multipart PNG, its info and PNG pixels
+     held to 3n's (3o); the bench with ``--shared`` (the tracker reads the
+     detector's pyramid) and without, in turns, both lines printed (3p);
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -163,6 +179,7 @@ CLS_BF16_PROB_MEAN = 0.05
 QUALITY_TOL = 0.005
 BENCH_BATCH, BENCH_ITERS = 128, 5
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NEEDLE = os.path.join(ROOT, "resources", "weights", "tracker_propagation_needle.msgpack")
 TRACK_GEOMETRY = dict(image_size=(480, 864), max_objects=4, mem_frames=8, mem_every=5)
@@ -300,6 +317,10 @@ PROTO_CASES = [
     (2, 5, 16, 20, 0.0, True, 0),         # thresholds outside (0, 1) keep the sigmoid
     (2, 5, 16, 20, 1.0, False, 0),
     (8, 1, 160, 160, None, False, 0),     # the speed pipeline's launch: the best slot of 8 frames, soft, no crop
+    (2, 32, 160, 160, None, True, 0),     # the server's padded batches of 2, 8 and 16 (retina: no crop)
+    (8, 32, 160, 160, None, False, 0),
+    (16, 32, 160, 160, None, True, 0),
+    (16, 32, 160, 160, None, False, 0),
     # bf16 operands and output: the bf16 detector's predict (B 4, N up to 32), the bf16
     # pipeline's launch (B 8, N 1, soft, no crop) and the bench's (B 128, N 1), then the
     # threshold and the ragged and split paths
@@ -1358,6 +1379,106 @@ def app_geometry(records) -> dict:
             "points": int(np.median([len(p) for p, _ in got]))}
 
 
+# the server, the CLI, the app and the web UI (phases 3l-3p)
+SERVE_FRAMES, SERVE_CLIENTS = 32, 16
+# one serve response against a direct predict of its frame: the server runs the frame in a
+# padded batch of up to 16, where cuDNN may sum in another order than at batch 1, so a box
+# or score may round one step the other way and a mask pixel at the threshold may flip
+SERVE_BOX_TOL, SERVE_CONF_TOL, SERVE_POLY_AREA_AGREE = 0.01 + 1e-5, 1e-4 + 1e-7, 0.999
+
+
+def http_post(url: str, data: bytes, ctype: str, timeout: float = 600.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST", headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(url: str, timeout: float = 60.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.headers["Content-Type"], resp.read()
+
+
+def same_serve_json(got: dict, ref: dict, hw) -> bool:
+    """A serve response against the JSON of a direct predict (its ``batch``
+    aside): cls and the polygon count equal, boxes and scores within one step of
+    their rounding, each polygon equal or, where a mask pixel went the other
+    way, filled to nearly the same pixels.  Returns whether all was equal."""
+    from yolo_puncture_tpu_torch.ops.geometry import polygon_to_mask
+
+    if got.get("error") is not None or got["cls"] != ref["cls"] or len(got["boxes"]) != len(ref["boxes"]):
+        raise AssertionError(f"serve response {got} differs from the direct predict {ref}")
+    if ref["boxes"] and not (np.abs(np.subtract(got["boxes"], ref["boxes"])).max() <= SERVE_BOX_TOL and
+                             np.abs(np.subtract(got["conf"], ref["conf"])).max() <= SERVE_CONF_TOL):
+        raise AssertionError(f"serve boxes or scores differ from the direct predict: {got} vs {ref}")
+    if len(got["polygons"]) != len(ref["polygons"]):
+        raise AssertionError("serve polygon count differs from the direct predict")
+    for g, r in zip(got["polygons"], ref["polygons"]):
+        if g != r:
+            fg, fr = polygon_to_mask(hw, g, 1), polygon_to_mask(hw, r, 1)
+            if (fg == fr).mean() < SERVE_POLY_AREA_AGREE:
+                raise AssertionError("a serve polygon differs from the direct predict's")
+    return got["boxes"] == ref["boxes"] and got["conf"] == ref["conf"] and got["polygons"] == ref["polygons"]
+
+
+def drive_server(server, pngs, queries):
+    """``len(pngs)`` POSTs to the running server from SERVE_CLIENTS threads at
+    once (client k sends requests k, k + SERVE_CLIENTS, ...).  Returns the
+    responses and each request's latency in ms."""
+    import threading
+
+    base = f"http://127.0.0.1:{server.port}/predict"
+    out, lat = [None] * len(pngs), [0.0] * len(pngs)
+
+    def client(k):
+        for i in range(k, len(pngs), SERVE_CLIENTS):
+            t = time.perf_counter()
+            out[i] = http_post(base + queries[i], pngs[i], "image/png")
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("a serve client did not finish")
+    return out, lat
+
+
+class TimedUNet:
+    """U²-Net's ``predict`` with its calls timed on the host clock (each returns
+    a numpy mask, so each ends synchronised)."""
+
+    def __init__(self, unet):
+        self.unet, self.ms, self.calls = unet, 0.0, 0
+
+    def predict(self, image):
+        t = time.perf_counter()
+        out = self.unet.predict(image)
+        self.ms += (time.perf_counter() - t) * 1e3
+        self.calls += 1
+        return out
+
+
+def multipart(fields: dict, filename: str, payload: bytes):
+    boundary = "chipsmokeboundary"
+    parts = []
+    for k, v in fields.items():
+        parts += [f"--{boundary}".encode(), f'Content-Disposition: form-data; name="{k}"'.encode(), b"",
+                  str(v).encode()]
+    parts += [f"--{boundary}".encode(), f'Content-Disposition: form-data; name="file"; filename="{filename}"'.encode(),
+              b"Content-Type: image/png", b"", payload, f"--{boundary}--".encode(), b""]
+    return b"\r\n".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1670,6 +1791,210 @@ def main() -> int:
         f"{geo['points']} polygon points median): numpy tracer and calipers {geo['numpy_ms_per_frame']:.4f} ms a "
         f"frame, C++ {geo['native_ms_per_frame']:.4f} ms a frame; polygons equal, lengths equal [{smi}]")
 
+    # -- 3l. the HTTP server (apps/serve.py): 32 PNG uploads from 16 clients, batched -----------------------
+    import contextlib
+    import importlib.util
+    import io
+
+    from yolo_puncture_tpu_torch.apps import app as app_mod
+    from yolo_puncture_tpu_torch.apps import serve, webui, yolo_cli
+    from yolo_puncture_tpu_torch.utils.png import decode_png, encode_png_rgb
+
+    serve_frames = seeded_frames(SERVE_FRAMES, h0, w0, seed=6)
+    pngs = [encode_png_rgb(f[..., ::-1]) for f in serve_frames]
+    queries = [f"?conf={conf}&retina={i % 2}&max_polygon={(-1, 0, 2)[i % 3]}" for i in range(SERVE_FRAMES)]
+    server = serve.Server(det, host="127.0.0.1", port=0, imgsz=imgsz, max_batch=16, window_ms=5.0).start()
+    try:
+        health = json.loads(http_get(f"http://127.0.0.1:{server.port}/healthz")[1])
+        if health != {"status": "ok", "platform": "gpu"}:
+            raise AssertionError(f"/healthz answered {health}")
+        drive_server(server, pngs[:SERVE_CLIENTS], queries[:SERVE_CLIENTS])     # warm-up: the batch shapes
+        stats0 = json.loads(http_get(f"http://127.0.0.1:{server.port}/stats")[1])
+        proto_decode.launches = proto_decode.launches_bf16 = 0
+        t = time.perf_counter()
+        responses, latency = drive_server(server, pngs, queries)
+        serve_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches["proto_decode_serve"] = proto_decode.launches
+        stats = json.loads(http_get(f"http://127.0.0.1:{server.port}/stats")[1])
+        bad = http_post(f"http://127.0.0.1:{server.port}/predict", b"not an image", "image/png")
+        if importlib.util.find_spec("cv2") is not None:     # a JPEG through cv2, and refused where cv2 is missing
+            import cv2
+
+            jpeg_bytes = cv2.imencode(".jpg", serve_frames[0])[1].tobytes()
+            jpeg_cv2 = http_post(f"http://127.0.0.1:{server.port}/predict?conf={conf}", jpeg_bytes, "image/jpeg")
+            jpeg_ref = serve.result_json(det.predict([cv2.imdecode(np.frombuffer(jpeg_bytes, np.uint8),
+                                                                   cv2.IMREAD_COLOR)], conf=conf, imgsz=imgsz)[0],
+                                         1, -1)
+            if jpeg_cv2[0] != 200:
+                raise AssertionError(f"a JPEG with cv2 installed got {jpeg_cv2}")
+            same_serve_json(jpeg_cv2[1], jpeg_ref, (h0, w0))
+            saved_cv2 = sys.modules["cv2"]
+            sys.modules["cv2"] = None                          # the handler's 'import cv2' now raises
+            try:
+                jpeg = http_post(f"http://127.0.0.1:{server.port}/predict", jpeg_bytes, "image/jpeg")
+            finally:
+                sys.modules["cv2"] = saved_cv2
+        else:
+            jpeg = http_post(f"http://127.0.0.1:{server.port}/predict", b"\xff\xd8\xff\xe0\x00\x10JFIF\x00"
+                             + bytes(64), "image/jpeg")
+    finally:
+        server.stop()
+    batches = stats["batches"] - stats0["batches"]
+    mean_batch = (stats["batched_frames"] - stats0["batched_frames"]) / max(batches, 1)
+    log(f"main path (serve, {SERVE_FRAMES} PNG uploads of {h0}x{w0} from {SERVE_CLIENTS} clients, retina and not, "
+        f"max_polygon -1/0/2): proto_decode launched {launches['proto_decode_serve']} times over {batches} device "
+        f"batches, mean padded batch {mean_batch:.2f} (/stats {json.dumps(stats)}); request latency ms p50 "
+        f"{np.percentile(latency, 50):.1f} p99 {np.percentile(latency, 99):.1f}, {SERVE_FRAMES / serve_s:.2f} "
+        f"requests/s [{smi}]")
+    if launches["proto_decode_serve"] <= 0 or proto_decode.launches_bf16:
+        raise AssertionError("the server did not decode its masks through proto_decode")
+    if not mean_batch > 1:
+        raise AssertionError(f"the server did not batch: mean batch {mean_batch}")
+    if bad != (400, {"error": "could not decode image"}):
+        raise AssertionError(f"garbage bytes got {bad}")
+    if jpeg != (400, {"error": "could not decode image"}):
+        raise AssertionError(f"a JPEG without cv2 got {jpeg}")
+    n_exact = n_boxes = 0
+    for (code, got), frame, q, i in zip(responses, serve_frames, queries, range(SERVE_FRAMES)):
+        if code != 200 or "error" in got:
+            raise AssertionError(f"request {i} answered {code} {got}")
+        retina, max_polygon = i % 2 == 1, (-1, 0, 2)[i % 3]
+        ref = serve.result_json(det.predict([frame], conf=conf, retina_masks=retina, imgsz=imgsz)[0], got["batch"],
+                                max_polygon)
+        n_exact += same_serve_json(got, ref, (h0, w0))
+        n_boxes += len(got["boxes"])
+    log(f"serve responses against a direct predict of each frame: {n_exact} of {SERVE_FRAMES} equal to the last "
+        f"digit, the others within a rounding step (boxes {SERVE_BOX_TOL}, scores {SERVE_CONF_TOL}, polygons "
+        f"filled to {SERVE_POLY_AREA_AGREE} of the same pixels); {n_boxes} boxes; garbage -> {bad[0]}, "
+        f"a JPEG without cv2 -> {jpeg[0]} ("
+        f"{'cv2 installed: with it, a JPEG -> 200' if importlib.util.find_spec('cv2') else 'cv2 absent'})")
+    if n_boxes == 0:
+        raise AssertionError("the served frames gave no detections")
+    launches["proto_decode"] += launches.pop("proto_decode_serve")
+
+    # -- 3m. yolo_cli predict over a directory of PNG files -------------------------------------------------
+    cli_dir = os.path.join(ROOT, "build", "cli_pngs")
+    os.makedirs(cli_dir, exist_ok=True)
+    for i in range(4):
+        with open(os.path.join(cli_dir, f"frame{i}.png"), "wb") as f:
+            f.write(pngs[i])
+    names = sorted(os.listdir(cli_dir))
+    proto_decode.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        yolo_cli.main(["predict", "model=yolo10s-seg", f"source={cli_dir}", f"conf={conf}", f"imgsz={imgsz}"])
+    torch.cuda.synchronize()
+    cli_launches = proto_decode.launches
+    want = []
+    for name, r in zip(names, det.predict([serve_frames[int(n[5])] for n in names], conf=conf, imgsz=imgsz,
+                                          retina_masks=True)):
+        want.append(f"{os.path.join(cli_dir, name)}: {len(r.boxes)} instances")
+        want += [f"  cls={int(r.boxes.cls[i])} conf={r.boxes.conf[i]:.3f} xyxy={r.boxes.xyxy[i].round(1).tolist()}"
+                 for i in range(len(r.boxes))]
+    got_lines = buf.getvalue().splitlines()
+    log(f"main path (yolo_cli predict, {len(names)} PNG files): proto_decode launched {cli_launches} times; "
+        f"{len(got_lines)} lines, first: {got_lines[:2]}")
+    if got_lines != want or cli_launches <= 0:
+        raise AssertionError(f"yolo_cli predict printed {got_lines}, a direct predict gives {want}")
+    launches["proto_decode"] += cli_launches
+
+    # -- 3n. the app's yolo_inference: image mode, then video mode on decoded frames ------------------------
+    app_image = np.ascontiguousarray(serve_frames[5][..., ::-1])                       # RGB, as gradio hands it
+    app_det = app_mod.build_detector("seg/yolo11n-seg-finetune.pt")            # no such file: the seeded YOLO11n
+    best = float(app_det.predict(app_image, conf=0.0, imgsz=imgsz)[0].boxes.conf.max())
+    app_conf = round(best * 0.95, 6)
+    proto_decode.launches = 0
+    t = time.perf_counter()
+    app_img, _, app_info = app_mod.yolo_inference(app_image, None, yolo_conf_threshold=app_conf, imgsz=imgsz,
+                                                  return_info=True)
+    app_ms = (time.perf_counter() - t) * 1e3
+    image_launches = proto_decode.launches
+    log(f"main path (yolo_inference image mode, seeded YOLO11n seg at {imgsz}^2 with retina masks, conf {app_conf}): "
+        f"proto_decode launched {image_launches} times; {json.dumps(app_info)}; {app_ms:.1f} ms with the model's "
+        f"build [{smi}]")
+    if image_launches <= 0 or app_info["detections"] <= 0 or app_img.shape != app_image.shape:
+        raise AssertionError("yolo_inference's image mode found nothing or did not launch proto_decode")
+    if not (app_img != app_image).any():
+        raise AssertionError("yolo_inference's image mode drew no mask")
+    vpipe, vunet = app_mod.build_video_models(app_det, "u2netp_finetune_70.pth",
+                                              "EfficientNet/efficientnet_b3.pth.tar", 8, imgsz, 380)
+    vconf, vgap = pipeline_conf(vpipe, clip)
+    timed_unet = TimedUNet(vunet)
+    app_mod.annotate_video(list(clip[:8]), 30.0, vpipe, timed_unet, vconf, 20, 380)           # warm-up
+    timed_unet.ms, timed_unet.calls = 0.0, 0
+    proto_decode.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    annotated, vinfo = app_mod.annotate_video(list(clip), 30.0, vpipe, timed_unet, vconf, 20, 380)
+    video_ms = (time.perf_counter() - t) * 1e3
+    video_launches = proto_decode.launches
+    ref_out = vpipe.process_frames(list(clip), 30.0, conf=vconf, judge_wnd=20)
+    log(f"main path (yolo_inference video mode on the {PIPE_FRAMES} decoded needle frames: seeded YOLO11n seg, B3 "
+        f"and U2NETP on 380^2 crops, device_batch 8, conf {vconf:.6f} in a gap of {vgap:.3g}): proto_decode launched "
+        f"{video_launches} times; {json.dumps(vinfo)}; {PIPE_FRAMES / video_ms * 1e3:.1f} frames/s, U2NETP "
+        f"{timed_unet.ms:.1f} of {video_ms:.1f} ms ({timed_unet.ms / video_ms:.1%}, {timed_unet.calls} calls) [{smi}]")
+    if video_launches != n_batches:
+        raise AssertionError(f"the app's video mode launched proto_decode {video_launches} times for {n_batches} "
+                             "batches")
+    if (vinfo["start_frame"], vinfo["end_frame"], vinfo["speed_mm_s"]) != (
+            ref_out.start_frame, ref_out.end_frame, ref_out.speed_mm_s):
+        raise AssertionError(f"the app's video mode measured {vinfo}, the pipeline {ref_out.start_frame}, "
+                             f"{ref_out.end_frame}, {ref_out.speed_mm_s}")
+    if len(annotated) != PIPE_FRAMES or timed_unet.calls != PIPE_FRAMES or not any(
+            (a != f).any() for a, f in zip(annotated, clip)):
+        raise AssertionError("the app's video mode did not annotate every frame")
+    launches["proto_decode"] += image_launches + video_launches
+    del vpipe, vunet, timed_unet, annotated
+
+    # -- 3o. the web UI (apps/webui.py): image mode over HTTP, a multipart PNG -------------------------------
+    ui = webui.WebUI(host="127.0.0.1", port=0, imgsz=imgsz).start()
+    try:
+        body, ctype = multipart({"mode": "image", "conf": app_conf}, "frame.png", pngs[5])
+        proto_decode.launches = 0
+        code, ui_info = http_post(f"http://127.0.0.1:{ui.port}/analyze", body, ctype)
+        ui_launches = proto_decode.launches
+        if code != 200:
+            raise AssertionError(f"the web UI answered {code} {ui_info}")
+        mime, ui_png = http_get(f"http://127.0.0.1:{ui.port}{ui_info['output_url']}")
+    finally:
+        ui.stop()
+    ui_img = decode_png(ui_png)
+    log(f"main path (web UI /analyze, image mode, a multipart PNG of {h0}x{w0}): proto_decode launched {ui_launches} "
+        f"times; {json.dumps(ui_info)}; {mime} of {len(ui_png)} bytes")
+    if ui_launches <= 0 or mime != "image/png":
+        raise AssertionError("the web UI did not launch proto_decode or did not answer with a PNG")
+    if {k: v for k, v in ui_info.items() if k != "output_url"} != app_info or not np.array_equal(
+            ui_img, app_img[..., ::-1]):
+        raise AssertionError("the web UI's info or annotated pixels differ from yolo_inference's")
+    launches["proto_decode"] += ui_launches
+    del app_det
+
+    # -- 3p. the bench with --shared (the tracker reads the detector's pyramid), in turns with the default ---
+    shared_lines = {}
+    for shared in (True, False):
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        proto_decode.launches = proto_decode.launches_bf16 = 0
+        res, details = bm.run_bench(BENCH_BATCH, BENCH_ITERS, imgsz, track=True, shared=shared)
+        torch.cuda.synchronize()
+        n_steps = BENCH_ITERS + 1
+        got = (proto_decode.launches_bf16, mr.memory_readout.launches, dt.decode_tail.launches)
+        log(f"main path (bench{' --shared' if shared else ''}, B {BENCH_BATCH}): {n_steps} steps launched "
+            f"proto_decode_bf16 {got[0]}, memory_readout {got[1]}, decode_tail {got[2]} times; steps ms "
+            f"{[round(v, 3) for v in details['steps_ms']]}, checksum {details['chk']} [{smi}]")
+        if got != (n_steps, n_steps * BENCH_BATCH // 4, n_steps) or proto_decode.launches:
+            raise AssertionError(f"the bench step launched {got}, not one decode, 32 readouts and one tail")
+        if not np.isfinite(details["chk"]):
+            raise AssertionError("the bench's checksum is not finite")
+        if shared:
+            launches["proto_decode_bf16"] += got[0]
+            launches["memory_readout_bf16"] += got[1]
+            launches["decode_tail_bf16"] += got[2]
+        shared_lines["shared" if shared else "default"] = res
+    for name, res in shared_lines.items():
+        log(f"bench {name}:")
+        print(json.dumps(res), flush=True)
+
     # -- 4. the same calls on the CPU ------------------------------------------------------
     det_cpu = YOLO("yolo10s-seg", nc=1, seed=0, device="cpu")
     for name, res, retina in (("non-retina", res_plain, False), ("retina", res_retina, True)):
@@ -1723,8 +2048,9 @@ def main() -> int:
     B, N, Hp, Wp, nm = n_frames, det.max_masks, imgsz // 4, imgsz // 4, 32
     launch = kernel_fn()
     # the batch; one frame, which is also what the predictor launches for a frame with more
-    # than max_masks detections (predictor.py _overflow: B 1, N max_masks); eight frames
-    for Bt in (B, 1, 8):
+    # than max_masks detections (predictor.py _overflow: B 1, N max_masks); eight frames; sixteen,
+    # the server's largest padded batch
+    for Bt in (B, 1, 8, 16):
         protos, coeffs, boxes = proto_decode_inputs(Bt, N, Hp, Wp, nm, 7, device)
         out = torch.empty((Bt, N, Hp, Wp), dtype=torch.float32, device=device)
         args = kernel_args(protos, coeffs, boxes, out, None, True)
@@ -1972,6 +2298,7 @@ def main() -> int:
     core.affinity_bf16 = True
     del model16, btracker, bframes, core
 
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from the start, the build included [{smi}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -35,16 +35,19 @@ from tests.torch_parity import torch_single_thread  # noqa: F401
 from yolo_puncture_tpu import track as jtrack
 from yolo_puncture_tpu.models.yolo import YOLOModel as JaxYOLOModel
 from yolo_puncture_tpu.ops.letterbox import letterbox as jax_letterbox
+from yolo_puncture_tpu.ops.letterbox import letterbox_params as jax_letterbox_params
 from yolo_puncture_tpu.ops.masks import decode_masks as jax_decode_masks
 from yolo_puncture_tpu.ops.nms import select_detections as jax_select_detections
 from yolo_puncture_tpu.track.core import TrackerCore as JaxTrackerCore
 from yolo_puncture_tpu.track.network import PropagationNetwork as JaxPropagationNetwork
 from yolo_puncture_tpu_torch import bench
+from yolo_puncture_tpu_torch.models.yolo import pyramid_channels_for
 from yolo_puncture_tpu_torch.ops.masks import _first_axis
 from yolo_puncture_tpu_torch.ops.resize import resize_bilinear
 from yolo_puncture_tpu_torch.track import TrackerCore, build_bench_tracker, reference_tracker_geometry
 
 FRAME_HW, MIN_SIDE, IMGSZ, B = (96, 160), 64, 64, 8
+SHARED_N_CHECKPOINT = "resources/weights/tracker_shared_n_trained.msgpack"
 ID_AGREE = 0.999
 # measured 0.99977 and 0.0491 (the bf16 affinity tracker against JAX's)
 BF16_ID_AGREE = 0.999
@@ -139,10 +142,13 @@ def _detector_variables():
 
 
 def _jax_fused_step(model, core):
-    """``bench.py``'s ``fused_step`` body (the self-contained tracker encoder,
-    the default best-slot decode)."""
+    """``bench.py``'s ``fused_step`` body (the default best-slot decode; the
+    tracker's own encoder, or with ``core.pyramid_adapter`` the detector's
+    pyramid over the letterbox content, ``BENCH_SHARED=1``)."""
     th, tw = core.image_size
     trk_vars = core.variables
+    _r, (new_w, new_h), (left, top) = jax_letterbox_params(*FRAME_HW, IMGSZ)
+    content_box = ((top / IMGSZ, (top + new_h) / IMGSZ), (left / IMGSZ, (left + new_w) / IMGSZ))
 
     @jax.jit
     def fused_step(variables, mem, frames_u8, conf, chk):
@@ -151,9 +157,13 @@ def _jax_fused_step(model, core):
         det = jax_select_detections(out, nms_free=True, conf_thres=conf, max_det=8)
         masks = jax_decode_masks(out["proto"], det["coeffs"][:, :1], det["boxes"][:, :1], (IMGSZ, IMGSZ),
                                  upsample=True, threshold=0.5)
-        n = frames_u8.shape[0]
-        timgs = jax.image.resize(frames_u8.astype(jnp.bfloat16), (n, th, tw, 3), "bilinear") / 255.0
-        keys, skips = core.net.apply(trk_vars, timgs, method=JaxPropagationNetwork.encode_key)
+        if core.pyramid_adapter:
+            pyr = out["pyramid"]
+            keys, skips = core.encode_pyramid(trk_vars, pyr["P3"], pyr["P4"], pyr["P5"], content_box=content_box)
+        else:
+            n = frames_u8.shape[0]
+            timgs = jax.image.resize(frames_u8.astype(jnp.bfloat16), (n, th, tw, 3), "bilinear") / 255.0
+            keys, skips = core.net.apply(trk_vars, timgs, method=JaxPropagationNetwork.encode_key)
         mem, ids = core.propagate_frames(trk_vars, mem, keys, skips, window=4, exact=True, full_res_ids=True)
         boxes, scores, valid = det["boxes"][:, 0], det["scores"][:, 0], det["valid"][:, 0]
         mask = masks[:, 0].astype(jnp.uint8)
@@ -178,30 +188,40 @@ class _HandOver:
         np.testing.assert_array_equal(x.float().numpy(), np.asarray(self.imgs[self.calls].astype(jnp.float32)))
         out = self.out[self.calls]
         self.calls += 1
-        return {k: torch.from_numpy(np.asarray(out[k].astype(jnp.float32))).to(
-            torch.bfloat16 if out[k].dtype == jnp.bfloat16 else torch.float32) for k in out}
+
+        def to_torch(a):
+            if isinstance(a, dict):
+                return {k: to_torch(v) for k, v in a.items()}
+            return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+                torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
+
+        return to_torch(out)
 
 
-def test_fused_step_matches_jax_fused_step():
+def _check_fused_step(shared: bool):
     """Two chained steps of B 8 through the port's ``bench.make_fused_step`` and
     ``bench.py``'s step body: the best slot's boxes, scores and valid flags
-    exactly and its masks ≥ MASK_AGREE equal (the head's outputs handed over),
-    the bf16 tracker's id maps ≥ BF16_ID_AGREE equal, the ring's bookkeeping
-    equal."""
-    jcore = JaxTrackerCore(variables=_needle(), dtype=jnp.bfloat16, image_size=reference_tracker_geometry(
-        FRAME_HW, MIN_SIDE), max_objects=2, mem_frames=8, mem_every=4, enable_long_term=False, affinity_bf16=True)
+    exactly and its masks ≥ MASK_AGREE equal (the head's outputs, and for the
+    shared tracker the pyramid, handed over), the bf16 tracker's id maps ≥
+    BF16_ID_AGREE equal, the ring's bookkeeping equal."""
+    weights = repo_path(SHARED_N_CHECKPOINT) if shared else _needle()
+    pyramid_channels = pyramid_channels_for("v10", "n") if shared else None
+    jcore = JaxTrackerCore(variables=weights, dtype=jnp.bfloat16, image_size=reference_tracker_geometry(
+        FRAME_HW, MIN_SIDE), max_objects=2, mem_frames=8, mem_every=4, enable_long_term=False, affinity_bf16=True,
+        pyramid_adapter=shared, pyramid_channels=pyramid_channels or (128, 256, 512))
     jmem = jcore.memory._replace(active=jcore.memory.active.at[0].set(True))
     # the tracker as bench_models builds it
-    pmem, ptrack = build_bench_tracker(dtype=torch.bfloat16, min_side=MIN_SIDE, window=4, frame_hw=FRAME_HW,
-                                       variables=_needle(), device="cpu", max_objects=2, full_res_ids=True,
-                                       affinity_bf16=True)
+    pmem, ptrack = build_bench_tracker(IMGSZ, dtype=torch.bfloat16, min_side=MIN_SIDE, window=4, frame_hw=FRAME_HW,
+                                       variables=weights, device="cpu", max_objects=2, full_res_ids=True,
+                                       affinity_bf16=True, pyramid_channels=pyramid_channels)
     variables = _detector_variables()
     jstep = _jax_fused_step(JaxYOLOModel(version="v10", scale="n", nc=1, task="segment", dtype=jnp.bfloat16), jcore)
     jchk, pchk, n_valid = jnp.float32(0), torch.zeros(()), 0
     for seed in (0, 1):
         frames = _frames(seed=seed)
         ref, jmem, imgs, head = jstep(variables, jmem, jnp.asarray(frames), jnp.float32(0.02), jchk)
-        model = _HandOver([imgs], [{k: head[k] for k in ("boxes", "probs", "coeffs", "proto")}])
+        keys = ("boxes", "probs", "coeffs", "proto") + (("pyramid",) if shared else ())
+        model = _HandOver([imgs], [{k: head[k] for k in keys}])
         step = bench.make_fused_step(model, ptrack, IMGSZ)
         got, pmem = step(pmem, torch.from_numpy(frames), 0.02, pchk)
         assert model.calls == 1
@@ -216,6 +236,38 @@ def test_fused_step_matches_jax_fused_step():
         n_valid += int(np.asarray(ref["valid"]).sum())
         jchk, pchk = ref["chk"], got["chk"]
     assert n_valid > 0
+
+
+def test_fused_step_matches_jax_fused_step():
+    """The default step: the tracker's own encoder (``_check_fused_step``)."""
+    _check_fused_step(shared=False)
+
+
+def test_shared_fused_step_matches_jax_shared_step():
+    """``--shared`` against ``BENCH_SHARED=1``: the tracker's keys from the
+    detector's pyramid, with the shipped shared-backbone checkpoint trained on
+    YOLOv10n's pyramid (``tracker_shared_n_trained.msgpack``)
+    (``_check_fused_step``)."""
+    _check_fused_step(shared=True)
+
+
+@pytest.mark.parametrize("version,imgsz", [("v10", (96, 64)), ("v11", (64, 128)), ("v8", (64, 64))])
+def test_pyramid_matches_jax(version, imgsz):
+    """``YOLOModel``'s ``pyramid`` output (P3, P4, P5, channels-last) against the
+    JAX model's within 1e-4 (fp32, seeded variables), and its widths are
+    ``pyramid_channels_for``'s."""
+    from tests.torch_parity import port_model_from_jax, seeded_jax_variables
+
+    jm = JaxYOLOModel(version=version, scale="n", nc=1, task="segment")
+    x = np.random.default_rng(3).uniform(0, 1, (2, *imgsz, 3)).astype(np.float32)
+    variables = seeded_jax_variables(jm, jnp.asarray(x[:1]), seed=4)
+    ref = jax.jit(jm.apply)(variables, jnp.asarray(x))["pyramid"]
+    with torch.no_grad():
+        got = port_model_from_jax(version, "n", 1, "segment", variables)(torch.from_numpy(x))["pyramid"]
+    assert sorted(got) == ["P3", "P4", "P5"]
+    for k, c, stride in zip(("P3", "P4", "P5"), pyramid_channels_for(version, "n"), (8, 16, 32)):
+        assert tuple(got[k].shape) == ref[k].shape == (2, imgsz[0] // stride, imgsz[1] // stride, c), k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=0, atol=1e-4, err_msg=k)
 
 
 def test_bf16_tracker_with_bf16_affinity_stays_close_to_jax():

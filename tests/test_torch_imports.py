@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: importing any of its modules (or ``chip_smoke.py``)
-pulls in neither JAX, flax, msgpack nor the JAX package ``yolo_puncture_tpu``, and
+pulls in neither JAX, flax, msgpack, the JAX package ``yolo_puncture_tpu`` nor its
+``apps``, and
 every module imports, and the tracker resizes frames and masks, with cv2 out of
 reach (the detector's ``ops/geometry.py`` and the predictor's file reader take cv2
 only when it is installed); the speed pipeline also runs with cv2 and yaml out of
-reach.
+reach, and the server and the web UI answer PNG uploads with cv2, PIL and gradio
+out of reach.
 
 Each check runs in a fresh interpreter, since this test process has JAX loaded.
 """
@@ -19,7 +21,7 @@ import pytest
 import yolo_puncture_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "msgpack", "yolo_puncture_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "yolo_puncture_tpu", "apps")
 
 
 def _port_modules():
@@ -51,7 +53,8 @@ def test_walk_finds_every_layer():
               "analytics", "analytics.keyframe", "analytics.speed", "analytics.stats", "models.efficientnet",
               "tasks", "tasks.classify", "pipeline", "pipeline.video", "pipeline.runner", "track.saver",
               "utils.png", "utils.plotting", "native", "apps", "apps.track_video", "apps.auto_speed_calc",
-              "apps.evaluate_speed", "apps.speed_freq"):
+              "apps.evaluate_speed", "apps.speed_freq", "apps.serve", "apps.app", "apps.webui", "apps.yolo_cli",
+              "models.u2net", "tasks.unet"):
         assert f"yolo_puncture_tpu_torch.{m}" in names
 
 
@@ -175,3 +178,57 @@ def test_track_video_runs_without_cv2_pil_or_matplotlib(tmp_path):
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("tracked without cv2, PIL or matplotlib")
+
+
+def test_server_and_web_ui_answer_a_png_without_cv2_pil_or_gradio():
+    """With jax, flax, yolo_puncture_tpu, apps, cv2, PIL and gradio all out of
+    reach: the server answers a PNG upload
+    (and refuses a JPEG with 400), the web UI answers a multipart PNG in image
+    mode with a PNG of the annotated image, and ``yolo_cli predict`` reads a
+    directory of PNG files."""
+    code = (
+        "import importlib, json, os, sys, tempfile, urllib.error, urllib.request\n"
+        f"for m in {FORBIDDEN + ('cv2', 'PIL', 'gradio')!r}: sys.modules[m] = None\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from yolo_puncture_tpu_torch import YOLO\n"
+        "from yolo_puncture_tpu_torch.apps import serve, webui, yolo_cli\n"
+        "from yolo_puncture_tpu_torch.utils.png import decode_png, encode_png_rgb\n"
+        "rgb = np.random.default_rng(0).integers(0, 255, (40, 56, 3), np.uint8)\n"
+        "png = encode_png_rgb(rgb)\n"
+        "def post(port, path, data, ctype):\n"
+        "    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}', data=data, method='POST',\n"
+        "                                 headers={'Content-Type': ctype})\n"
+        "    try:\n"
+        "        with urllib.request.urlopen(req, timeout=120) as r:\n"
+        "            return r.status, json.loads(r.read())\n"
+        "    except urllib.error.HTTPError as e:\n"
+        "        return e.code, json.loads(e.read())\n"
+        "srv = serve.Server(YOLO('yolo10n-seg', nc=1, max_det=4, device='cpu'), imgsz=64).start()\n"
+        "code, out = post(srv.port, '/predict?conf=0.0&retina=1', png, 'image/png')\n"
+        "assert code == 200 and len(out['boxes']) == 4 and out['batch'] == 1, (code, out)\n"
+        "refused = post(srv.port, '/predict', b'\\xff\\xd8\\xff\\xe0jpeg', 'image/jpeg')\n"
+        "assert refused == (400, {'error': 'could not decode image'}), refused\n"
+        "srv.stop()\n"
+        "ui = webui.WebUI(imgsz=64, device='cpu').start()\n"
+        "b = b'--xx\\r\\nContent-Disposition: form-data; name=\"mode\"\\r\\n\\r\\nimage\\r\\n'\n"
+        "b += b'--xx\\r\\nContent-Disposition: form-data; name=\"conf\"\\r\\n\\r\\n0.0\\r\\n'\n"
+        "b += b'--xx\\r\\nContent-Disposition: form-data; name=\"file\"; filename=\"f.png\"\\r\\n\\r\\n' + png\n"
+        "b += b'\\r\\n--xx--\\r\\n'\n"
+        "code, info = post(ui.port, '/analyze', b, 'multipart/form-data; boundary=xx')\n"
+        "assert code == 200 and info['mode'] == 'image' and info['detections'] > 0, (code, info)\n"
+        "with urllib.request.urlopen(f'http://127.0.0.1:{ui.port}' + info['output_url'], timeout=60) as r:\n"
+        "    assert decode_png(r.read()).shape == (40, 56, 3)\n"
+        "ui.stop()\n"
+        "d = tempfile.mkdtemp()\n"
+        "open(os.path.join(d, 'a.png'), 'wb').write(png)\n"
+        "assert len(yolo_cli.main(['predict', 'model=yolo10n-seg', f'source={d}', 'imgsz=64'], device='cpu')) == 1\n"
+        "leaked = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'PIL', 'gradio')\n"
+        "                and sys.modules[k] is not None)\n"
+        "assert not leaked, leaked\n"
+        "print('served without cv2, PIL or gradio')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("served without cv2, PIL or gradio")

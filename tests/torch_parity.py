@@ -145,6 +145,36 @@ def seeded_classifier_variables(variant: str, size: int, seed: int = 3):
     return calibrated_batch_stats(variables, model, images, key_of)
 
 
+def unet_images(h: int, w: int, n: int = 3, seed: int = 5) -> np.ndarray:
+    """Seeded BGR uint8 frames (n, h, w, 3): a bright slanted bar over dark
+    noise, the needle crops the app hands to U²-Net."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 90, (n, h, w, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    for i, im in enumerate(images):
+        im[np.abs(yy - (0.3 + 0.1 * i) * h - 0.4 * xx) < 4 + i] = 220
+    return images
+
+
+def seeded_u2net_variables(small: bool, images_bgr: np.ndarray, seed: int = 7):
+    """numpy variable tree of the JAX package's ``U2Net(small)``:
+    ``seeded_jax_variables`` with the BatchNorm statistics of ``images_bgr``
+    (``calibrated_batch_stats``)."""
+    import jax.numpy as jnp
+
+    from yolo_puncture_tpu.models.u2net import U2Net as JaxU2Net
+    from yolo_puncture_tpu_torch.models.u2net import U2Net
+    from yolo_puncture_tpu_torch.utils.convert import _LEAF, export_u2net_state_dict
+
+    h, w = images_bgr.shape[1:3]
+    variables = seeded_jax_variables(JaxU2Net(small=small), jnp.zeros((1, h, w, 3), jnp.float32), seed)
+    model = U2Net(small=small)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in export_u2net_state_dict(variables).items()},
+                          strict=False)
+    x = torch.from_numpy(images_bgr[..., ::-1].copy()).permute(0, 3, 1, 2).float() / 255.0
+    return calibrated_batch_stats(variables, model, x, lambda path, leaf: ".".join(path) + "." + _LEAF[leaf])
+
+
 def seeded_detector_variables(version: str, frames_bgr: np.ndarray, imgsz: int, seed: int = 11):
     """numpy variable tree of the JAX package's YOLO ``version``-n seg with one
     class: ``seeded_jax_variables`` with the BatchNorm statistics of

@@ -2,15 +2,16 @@
 
 Mirrors the JAX package's layout so each counterpart is easy to find:
   nn/        conv/attention blocks and detection/segmentation heads (NCHW)
-  models/    YOLO v8/v10/v11 det+seg
+  models/    YOLO v8/v10/v11 det+seg, EfficientNet, U²-Net
   ops/       letterbox, NMS / v10 top-k, mask decode and paste, contours
   ops/kernels/  hand-written CUDA kernels (sources in csrc/) with plain PyTorch versions
   predict/   ultralytics-compatible ``YOLO(weights).predict`` → Results / Boxes / Masks
   track/     the mask tracker, its memory and the result saver
-  pipeline/  the needle-speed video pipeline; analytics/, tasks/ its host analytics and classifier
-  native/    the host geometry in C++ (contours, min-area rectangle, RLE), built with g++
-  apps/      the entry points: track_video, auto_speed_calc, evaluate_speed, speed_freq
-  utils/     weight bridge (JAX variables, ultralytics .pt), device choice, PNG writer, plots
+  pipeline/  the needle-speed video pipeline; analytics/, tasks/ its host analytics, classifier and U²-Net
+  native/    host code in C++ (contours, min-area rectangle, RLE; PNG row filters), built with g++
+  apps/      the entry points: track_video, auto_speed_calc, evaluate_speed, speed_freq, serve,
+             app, webui, yolo_cli
+  utils/     weight bridge (JAX variables, ultralytics .pt), device choice, PNG writer and reader, plots
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.  The
 package imports torch, numpy and scipy only (cv2, PIL and matplotlib where a

@@ -3,7 +3,7 @@ counterpart of the repository's ``bench.py`` in its default mode
 (``BENCH_MODE=stream``, ``BENCH_FUSED=1``).
 
     python -m yolo_puncture_tpu_torch.bench [--batch 128] [--iters 10] [--imgsz 640]
-                                            [--no-track] [--trace DIR]
+                                            [--no-track | --shared] [--trace DIR]
 
 One step takes a batch of B seeded BGR frames of 720×1280
 (``numpy.random.default_rng(0)``), uploaded once before the clock starts, and runs:
@@ -24,7 +24,11 @@ One step takes a batch of B seeded BGR frames of 720×1280
     (``ops/resize.py resize_bilinear``), encodes all B keys, then
     ``propagate_frames(window=4, exact=True, full_res_ids=True)``: 32 windows,
     one ``memory_readout`` launch each, one ``decode_tail`` launch over all
-    B × 2 object cells;
+    B × 2 object cells.  With ``--shared`` (``bench.py``'s ``BENCH_SHARED=1``)
+    the tracker has no encoder of its own: ``TrackerCore(pyramid_adapter=True)``
+    reads the detector's P3/P4/P5 pyramid of the same step through
+    ``encode_pyramid`` over the letterbox content (``build_bench_tracker``'s
+    ``pyramid_channels``), and the frames are not resized for it;
   * a checksum folded from the step's boxes, scores, valid flags, masks and ids,
     carried into the next step, so that every step depends on the one before.
 
@@ -42,8 +46,7 @@ What of ``bench.py`` is not here, and why:
     (``BENCH_FUSED=0``, ``build_bench_tracker`` beside a detector-only step);
   * the switches that select modules the port has not ported: int8 convolutions
     (``BENCH_INT8_DET``, ``BENCH_INT8_STATIC``), the int8 memory ring
-    (``BENCH_INT8``), the shared pyramid adapter (``BENCH_SHARED``), long-term
-    memory (``BENCH_LT``);
+    (``BENCH_INT8``), long-term memory (``BENCH_LT``);
   * the switches that select what the port's step is by construction: the
     readout kernel (``BENCH_FLASH``), the fused tail kernel
     (``BENCH_PALLAS_TAIL``), the sub-pixel tail (``BENCH_SUBPIX``), and the
@@ -69,7 +72,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from yolo_puncture_tpu_torch.models.yolo import YOLOModel
+from yolo_puncture_tpu_torch.models.yolo import YOLOModel, pyramid_channels_for
 from yolo_puncture_tpu_torch.ops.letterbox import letterbox
 from yolo_puncture_tpu_torch.ops.masks import decode_masks
 from yolo_puncture_tpu_torch.ops.nms import select_detections
@@ -83,10 +86,11 @@ CONF = 0.25
 WINDOW = 4
 
 
-def bench_models(imgsz: int = 640, track: bool = True, device=None):
+def bench_models(imgsz: int = 640, track: bool = True, device=None, shared: bool = False):
     """The bench's detector (YOLOv10-S seg, bf16, seeded) and tracker
-    (``build_bench_tracker``'s (initial memory, step) in bf16 with two slots, or
-    None without ``track``), on ``device`` (the card unless it says "cpu")."""
+    (``build_bench_tracker``'s (initial memory, step) in bf16 with two slots,
+    with ``shared`` the one that reads the detector's pyramid, or None without
+    ``track``), on ``device`` (the card unless it says "cpu")."""
     dev = resolve_device(device)
     model = YOLOModel("v10", "s", nc=1, task="segment", dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(0))
@@ -95,7 +99,8 @@ def bench_models(imgsz: int = 640, track: bool = True, device=None):
     if track:
         tracker = build_bench_tracker(imgsz, dtype=torch.bfloat16, min_side=MIN_SIDE, window=WINDOW,
                                       frame_hw=FRAME_HW, device=dev, max_objects=2, full_res_ids=True,
-                                      affinity_bf16=True)
+                                      affinity_bf16=True,
+                                      pyramid_channels=pyramid_channels_for("v10", "s") if shared else None)
     return model, tracker
 
 
@@ -120,7 +125,7 @@ def make_fused_step(model, track_fn, imgsz: int = 640):
                + mask[:, ::37, ::37].to(torch.int32).sum())
         ids = None
         if track_fn is not None:
-            memory, ids = track_fn(memory, frames_u8)
+            memory, ids = track_fn(memory, frames_u8, out.get("pyramid"))
             chk = chk + ids[:, ::64, ::64].to(torch.int32).sum()
         return {"boxes": boxes, "scores": scores, "valid": valid, "mask": mask, "ids": ids, "chk": chk}, memory
 
@@ -134,12 +139,12 @@ def seeded_frames(batch: int) -> np.ndarray:
 
 
 def run_bench(batch: int = 128, iters: int = 10, imgsz: int = 640, track: bool = True,
-              trace_dir: Optional[str] = None, device=None) -> Tuple[Dict, Dict]:
+              trace_dir: Optional[str] = None, device=None, shared: bool = False) -> Tuple[Dict, Dict]:
     """Build, warm up and time the fused step.  Returns (``bench.py``'s result
     dict plus ``median_step_ms``, details: step times in ms, the checksum, the
     device, the seconds of the timed loop)."""
     dev = resolve_device(device)
-    model, tracker = bench_models(imgsz, track, dev)
+    model, tracker = bench_models(imgsz, track, dev, shared)
     mem, track_fn = tracker if tracker is not None else (None, None)
     step = make_fused_step(model, track_fn, imgsz)
     frames = torch.from_numpy(seeded_frames(batch)).to(dev)
@@ -187,12 +192,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--imgsz", type=int, default=640)
-    ap.add_argument("--no-track", dest="track", action="store_false", help="the detector alone")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--no-track", dest="track", action="store_false", help="the detector alone")
+    mode.add_argument("--shared", action="store_true",
+                      help="the tracker reads the detector's pyramid (bench.py's BENCH_SHARED=1)")
     ap.add_argument("--trace", default=None, help="directory for a torch.profiler trace of one more step")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result, details = run_bench(args.batch, args.iters, args.imgsz, args.track, args.trace)
+    result, details = run_bench(args.batch, args.iters, args.imgsz, args.track, args.trace, shared=args.shared)
     print(f"# steps ms {[round(t, 3) for t in details['steps_ms']]}, checksum {details['chk']}, "
           f"{details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

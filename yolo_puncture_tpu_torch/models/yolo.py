@@ -8,14 +8,17 @@ ultralytics' ``DetectionModel.model``, so state-dict keys are ``model.{i}.…``.
 ``forward`` takes NHWC images in [0, 1] (the JAX package's layout), runs NCHW
 in the model's ``dtype`` (fp32, or bf16 as the JAX package's
 ``dtype=bfloat16``: ``nn/common.py to_compute_dtype``), and returns the head's
-dict in the JAX layouts: ``boxes`` (B, A, 4), ``probs`` (B, A, nc), and for
-segmentation ``coeffs`` (B, A, nm), ``proto`` (B, Hp, Wp, nm).
+dict in the JAX layouts: ``boxes`` (B, A, 4), ``probs`` (B, A, nc), for
+segmentation ``coeffs`` (B, A, nm), ``proto`` (B, Hp, Wp, nm), and
+``pyramid`` = {P3, P4, P5}, the head's three inputs (B, h, w, C) as
+channels-last views (the shared-backbone tracker reads them;
+``pyramid_channels_for`` gives their widths).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,6 +166,14 @@ SCALES = {
 _V11_FORCE_C3K = {"m", "l", "x"}
 
 
+def pyramid_channels_for(version: str = "v10", scale: str = "s") -> Tuple[int, int, int]:
+    """(C3, C4, C5), the widths of the P3/P4/P5 pyramid of a detector scale: what
+    ``TrackerCore(pyramid_channels=...)`` takes so that its adapter's 1×1
+    projections fit the backbone that feeds them."""
+    _, width, max_ch = SCALES[version][scale]
+    return tuple(make_divisible(min(c, max_ch) * width, 8) for c in (256, 512, 1024))
+
+
 def _spec(version: str, scale: str):
     if version == "v8":
         return V8_SPEC
@@ -292,6 +303,7 @@ class YOLOModel(nn.Module):
                 x = upsample_nearest_2x(inputs[0])
             elif block == "HEAD":
                 out = self.model[i](inputs)
+                out["pyramid"] = {k: t.permute(0, 2, 3, 1) for k, t in zip(("P3", "P4", "P5"), inputs)}
             else:
                 x = self.model[i](inputs[0])
             if i in self._needed:

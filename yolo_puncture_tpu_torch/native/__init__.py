@@ -1,8 +1,12 @@
-"""The host geometry in C++ (``native/geometry.cpp``), built with g++ at first
-use into ``build/native/`` and loaded with ctypes by ``_build.load``.  A failed
-build raises: there is no fallback.  ``ops/geometry.py`` calls
-``min_area_rect``, ``trace_contours`` and ``rle_encode``; the numpy versions
-there are their plain versions.
+"""Host code in C++, built with g++ at first use into ``build/native/`` and
+loaded with ctypes by ``_build.load``.  A failed build raises: there is no
+fallback.
+
+  * ``native/geometry.cpp``: ``ops/geometry.py`` calls ``min_area_rect``,
+    ``trace_contours`` and ``rle_encode``; the numpy versions there are their
+    plain versions;
+  * ``native/png.cpp``: ``png_unfilter``, the PNG row filters undone for
+    ``utils/png.py decode_png``.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 from yolo_puncture_tpu_torch import _build
 
 _lib = None
+_png_lib = None
 
 
 def load() -> ctypes.CDLL:
@@ -71,3 +76,22 @@ def rle_encode(mask: np.ndarray) -> list:
     out = np.empty(2 * (m.size // 2 + 1), np.int64)
     count = load().rle_encode(m.ctypes.data, m.size, out.ctypes.data)
     return out[:2 * count].tolist()
+
+
+def png_unfilter(data: bytes, h: int, stride: int, bpp: int):
+    """The ``h`` filtered rows of a PNG image (each a filter-type byte and
+    ``stride`` bytes, ``bpp`` bytes a pixel) → (h, stride) uint8, or None where
+    a row names a filter type other than 0..4."""
+    global _png_lib
+    if _png_lib is None:
+        lib = _build.load("png")
+        lib.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_void_p]
+        lib.png_unfilter.restype = ctypes.c_int
+        _png_lib = lib
+    if len(data) < h * (stride + 1):
+        raise ValueError(f"{len(data)} bytes hold fewer than {h} rows of {stride + 1}")
+    out = np.empty((h, stride), np.uint8)
+    if _png_lib.png_unfilter(bytes(data), h, stride, bpp, out.ctypes.data) != 0:
+        return None
+    return out

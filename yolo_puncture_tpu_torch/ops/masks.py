@@ -120,13 +120,14 @@ def decode_masks(
 
 @lru_cache(maxsize=16)
 def _linear_weight_mat(in_size: int, out_size: int, scale: float, translation: float,
-                       device: torch.device) -> torch.Tensor:
+                       device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(in, out) resampling weights of ``jax.image.scale_and_translate(method="linear")``
     (``compute_weight_mat`` in jax/_src/image/scale.py): a triangle kernel widened by
     max(1/scale, 1) when downscaling (antialias), columns normalised, and samples
-    that fall outside the input zeroed.  Computed in fp32 as JAX does, on the host,
-    once per geometry (cached; callers must not write to it)."""
-    f32 = torch.float32
+    that fall outside the input zeroed.  Computed in fp32 as JAX does (in float64
+    with ``dtype``, as JAX does with 64-bit floats enabled), on the host, once per
+    geometry (cached; callers must not write to it)."""
+    f32 = dtype
     inv_scale = 1.0 / torch.tensor(scale, dtype=f32)
     kernel_scale = torch.clamp(inv_scale, min=1.0)
     sample_f = ((torch.arange(out_size, dtype=f32) + 0.5) * inv_scale

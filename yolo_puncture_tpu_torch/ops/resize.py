@@ -138,10 +138,15 @@ def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tens
     over 1.5 source pixels, unlike cv2's INTER_LINEAR), with the weights of
     ``ops/masks.py _linear_weight_mat`` rounded to the images' type, and the two
     contractions each summed in fp32 and rounded to that type, in the order
-    XLA's einsum takes them.  (B, H, W, C) → (B, h, w, C), a channels-last view
-    of a (B, C, h, w) tensor."""
+    XLA's einsum takes them.  float64 images get float64 scales and weights, as
+    JAX computes them with 64-bit floats enabled.  (B, H, W, C) → (B, h, w, C),
+    a channels-last view of a (B, C, h, w) tensor."""
     B, H, W, C = images.shape
     h, w = out_hw
-    wh = _linear_weight_mat(H, h, float(np.float32(h / H)), 0.0, images.device).to(images.dtype)
-    ww = _linear_weight_mat(W, w, float(np.float32(w / W)), 0.0, images.device).to(images.dtype)
+    if images.dtype == torch.float64:           # JAX with 64-bit floats: scales and weights in float64
+        wh = _linear_weight_mat(H, h, h / H, 0.0, images.device, torch.float64)
+        ww = _linear_weight_mat(W, w, w / W, 0.0, images.device, torch.float64)
+    else:
+        wh = _linear_weight_mat(H, h, float(np.float32(h / H)), 0.0, images.device).to(images.dtype)
+        ww = _linear_weight_mat(W, w, float(np.float32(w / W)), 0.0, images.device).to(images.dtype)
     return _resample(images.permute(0, 3, 1, 2), wh, ww).permute(0, 2, 3, 1)

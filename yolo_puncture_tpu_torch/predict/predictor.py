@@ -1,7 +1,8 @@
 """Ultralytics-compatible predictor: ``YOLO(weights).predict(...)`` on the GPU.
 
 Counterpart of ``yolo_puncture_tpu/predict/predictor.py``.  Accepts ndarray /
-PIL / path / directory / video sources and ``conf``, ``iou``, ``retina_masks``,
+PIL / path / directory / video sources (PNG files are read by ``utils/png.py``,
+the other files by cv2) and ``conf``, ``iou``, ``retina_masks``,
 ``imgsz``; returns one ``Results`` per frame with boxes and masks in original
 frame coordinates.  Per batch of same-shape frames, on the device:
 
@@ -39,6 +40,7 @@ from yolo_puncture_tpu_torch.utils.convert import (
     read_msgpack,
 )
 from yolo_puncture_tpu_torch.utils.device import resolve_device
+from yolo_puncture_tpu_torch.utils.png import decode_png
 
 _NAME_RE = re.compile(r"yolo(?:v)?(\d+)([nsmblx])(-seg)?", re.IGNORECASE)
 
@@ -157,6 +159,11 @@ class YOLO:
 
         def one(s):
             if isinstance(s, str):
+                if s.lower().endswith(".png") and os.path.isfile(s):
+                    with open(s, "rb") as f:
+                        img = decode_png(f.read())    # cv2.imread's pixels, without cv2
+                    if img is not None:
+                        return img, s
                 import cv2
 
                 img = cv2.imread(s)

@@ -1,4 +1,4 @@
-"""Tasks of the port: the insertion-state classifier (the U-Net task is not ported yet)."""
+"""Tasks of the port: the insertion-state classifier and the U²-Net mask refinement."""
 
 from yolo_puncture_tpu_torch.tasks.classify import (  # noqa: F401
     load_classify_net,
@@ -6,3 +6,4 @@ from yolo_puncture_tpu_torch.tasks.classify import (  # noqa: F401
     predict_and_find_start_inserted,
     ClassifierNet,
 )
+from yolo_puncture_tpu_torch.tasks.unet import UNetPredictor, load_unet, unet_predict  # noqa: F401,E402

@@ -25,7 +25,9 @@ the JAX package's order, so the map is HWIO → OIHW plus the BatchNorm leaf nam
 ``export_classifier_state_dict`` maps the JAX package's EfficientNet variables
 onto timm's keys (``blocks_{s}_{i}`` → ``blocks.{s}.{i}``), the keys the port's
 ``models/efficientnet.py`` carries, so a timm checkpoint and a JAX variable tree
-load through the same ``load_classifier_state_dict``.
+load through the same ``load_classifier_state_dict``.  ``export_u2net_state_dict``
+maps the JAX package's U²-Net variables onto the reference's torch names, which
+``models/u2net.py`` carries.
 """
 
 from __future__ import annotations
@@ -381,3 +383,23 @@ def load_classifier_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) ->
         raise ValueError(
             f"state dict does not fit the classifier: missing {missing}, unexpected {list(unexpected)}"
         )
+
+
+# ---------------------------------------------------------------------------
+# U²-Net variables → the reference's torch-named state dict
+# ---------------------------------------------------------------------------
+
+
+def export_u2net_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's U²-Net / U2NETP variables (``params`` + ``batch_stats``)
+    → the reference's raw state dict as numpy arrays (``stage1.rebnconvin.conv_s1.weight``,
+    ``…bn_s1.running_mean``, ``side1.bias``, ``outconv.weight``): the module paths
+    are the torch names already; conv kernels HWIO → OIHW."""
+    out: Dict[str, np.ndarray] = {}
+    for tree in (variables["params"], variables.get("batch_stats", {})):
+        for path, arr in _flatten(tree).items():
+            a = np.asarray(arr)
+            if path[-1] == "kernel":
+                a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+            out[".".join(path[:-1]) + "." + _LEAF[path[-1]]] = a
+    return out
