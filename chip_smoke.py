@@ -17,6 +17,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      readout on large logits; with ``affinity_bf16`` at the bench's and the
      tracker's shapes) and ``decode_tail`` (fp32 and bf16, the window,
      one frame, shapes down to a single pixel, and the bench's 128 × 2 cells);
+     and the backward of the tracker's two kernels (``MemoryReadout``,
+     ``DecodeTail``: the kernel's forward, the gradient of the dense readout and
+     of the un-packed tail) at the tracker trainer's shapes and the app's frame,
+     against the same Functions on the port's CPU path and float64 on the card,
+     within derived limits (``readout_grad_limits``, ``tail_grad_limit_rel``);
   3. drive the main paths with every kernel's launch count set to 0 just before
      and read just after, each kernel of a path must have run:
      ``YOLO("yolo10s-seg").predict`` at imgsz 640 on four seeded 720×1280 frames
@@ -62,6 +67,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      ``/analyze`` in image mode with a multipart PNG, its info and PNG pixels
      held to 3n's (3o); the bench with ``--shared`` (the tracker reads the
      detector's pyramid) and without, in turns, both lines printed (3p);
+     training (3q–3s): ``PropagationTrainer`` as ``apps/train_tracker.py`` builds
+     it with its defaults (256², clips of 4 frames, 4 objects, batch 8, a ring of 4
+     written every frame, long-term off, ``--clips mixed``, seeded init): one
+     step's loss and gradients against the port's CPU run of the same batch (the
+     readout and the tail launched once a frame, forward), then 20 timed steps
+     and 10 with ``window_mix`` 0.5 (window 3); the detector's ``Trainer`` on
+     YOLOv10-S seg at 640² and a synthetic batch of polygons: one step's losses
+     and gradients at B 2 against the CPU, then 10 timed steps at B 8 (ms a step,
+     images/s, peak memory); ``train_tracker --steps 20``, whose msgpack
+     ``TrackerCore`` loads and steps with, and ``yolo_cli train`` for 2 steps then
+     ``val`` on a synthetic PNG dataset in a temporary directory;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -72,7 +88,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      events, and ``predict``, one ``step``, one window and the pipeline's
      ``process_frames`` over the clip (frames per second, its stages) with a
      synchronised host clock, in fp32 and bf16, and the bench step's stages
-     and step times with ``affinity_bf16`` on and off in turns.
+     and step times with ``affinity_bf16`` on and off in turns; the backward of
+     the readout and the tail at the trainer's shapes beside their forward (6h).
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with each
 kernel's launches on its main path, its error against the plain version, its
@@ -696,7 +713,7 @@ def needle_network(device):
 
     net = PropagationNetwork()
     load_tracker_state_dict(net, export_tracker_state_dict(read_msgpack(NEEDLE)))
-    return net.to(device).eval()
+    return net.to(device).eval().requires_grad_(False)   # the kernels' forward; check_tail_grad_case turns it on
 
 
 def tail_inputs(N, No, H16, W16, dtype, seed, device):
@@ -727,8 +744,9 @@ def check_decode_tail_case(params, case, device, seed=300) -> float:
     N, No, H16, W16 = case
     dtype, tol = params.dtype, TAIL_TOL[params.dtype]
     hidden, f8p, f4p = tail_inputs(N, No, H16, W16, dtype, seed, device)
-    got = decode_tail(params, hidden, f8p, f4p)
-    ref = decode_tail_reference(params, hidden, f8p, f4p)
+    with torch.no_grad():                                   # the forward alone: check_tail_grad_case has the backward
+        got = decode_tail(params, hidden, f8p, f4p)
+        ref = decode_tail_reference(params, hidden, f8p, f4p)
     torch.cuda.synchronize()
     if got.dtype != torch.float32 or tuple(got.shape) != (N, No, 4 * H16, 4 * W16) \
             or not torch.isfinite(got).all():
@@ -1479,6 +1497,417 @@ def multipart(fields: dict, filename: str, payload: bytes):
     return b"\r\n".join(parts), f"multipart/form-data; boundary={boundary}"
 
 
+# ---------------------------------------------------------------------------
+# training: the backward of the tracker's kernels, the tracker's and the detector's trainers
+# ---------------------------------------------------------------------------
+
+FP32_UNIT = 2.0 ** -24
+# (Q, M, No, valid): the tracker trainer's readout (a 256×256 frame, a ring of 4 × 256 written
+# every frame and the 8 vestigial long-term slots; full, and half filled as in a clip's first
+# frames), and the tracking app's frame at 480×864 (ring of 8, every 5 frames)
+READOUT_GRAD_CASES = [(256, 1032, 4, "train_full"), (256, 1032, 4, "train_half"), (1620, 12968, 4, "ring")]
+# (N, No, H16, W16): one frame and a window of 3 frames of the trainer (16×16 → 64×64), the app's frame
+TAIL_GRAD_CASES = [(1, 4, 16, 16), (3, 4, 16, 16), (1, 4, 30, 54)]
+# the detector trainer on the card against its CPU run, fp32 both: the components of the loss and
+# each gradient tensor.  Two fp32 implementations of the same train-mode network (BatchNorm on
+# batch statistics) differ by up to 1e-5 in the components and 2.3e-4 in a gradient tensor on the
+# CPU (tests/test_torch_train_detector.py, YOLOv8-n at 64²); the limits give that ten times, and
+# the global term is for BatchNorm biases before a train-mode BatchNorm, whose gradient vanishes
+# but for rounding
+DET_STEP_LOSS_REL = 1e-4
+DET_STEP_GRAD_REL, DET_STEP_GRAD_GLOBAL = 2.3e-3, 1e-5
+# the tracker trainer on the card against its CPU run: the loss, and each parameter's gradient
+# ‖Δg‖ ≤ rel·‖g‖ + global·‖all of g‖; the CPU test of the port against JAX measured 2.6e-5 per
+# tensor over a clip of 4 frames, the limit gives ten times that over the batch's 8 clips
+TRACK_STEP_LOSS_REL = 1e-5
+TRACK_STEP_GRAD_REL, TRACK_STEP_GRAD_GLOBAL = 1e-3, 1e-5
+
+
+def readout_grad_inputs(case, device, seed):
+    Q, M, No, valid = case
+    q, k, v, _ = readout_inputs(Q, M, No, 128, torch.float32, seed, device)
+    ring = 1024 if valid == "train_full" else 512 if valid == "train_half" else 8 * 1620
+    ok = (torch.arange(M, device=device) < ring)
+    d_out = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((No, Q, 128)).astype(np.float32))
+    return q, k, v, ok, d_out.to(device)
+
+
+def readout_grads(q, k, v, ok, d_out):
+    """(output, dq, dk, dv) of ``memory_readout`` through its autograd Function."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
+
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = memory_readout(q, k, v, ok)
+    if out.grad_fn is None:
+        raise AssertionError("memory_readout returned a tensor without grad_fn for inputs that require one")
+    out.backward(d_out)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def readout_grads_fp64(q, k, v, ok, d_out):
+    """The dense readout's gradients in float64 by autograd, on the inputs' device."""
+    q, k, v = (t.detach().double().requires_grad_() for t in (q, k, v))
+    s = (q @ k.T) * q.shape[1] ** -0.5
+    s = s.masked_fill(~ok[None], float("-inf"))
+    m = s.max(-1, keepdim=True).values
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m))) * ok[None]
+    out = torch.einsum("qm,nmc->nqc", p / p.sum(-1, keepdim=True).clamp_min(1e-9), v)
+    out.backward(d_out.double())
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def readout_grad_limits(q, k, v, ok, d_out, out_err):
+    """Per-element limits for (dq, dk, dv) of two fp32 runs of the backward against
+    each other: the worst-case bound of fp32 sums taken in another order, n·2^-24
+    times the sum of the magnitudes of the terms (n = M + No·Cv for dq and dk, which
+    go through dP = Σ_o dO·Vᵀ and a product over the memory, n = Q for dv), plus
+    the recomputed weights P, whose fp32 logits may differ by Ck·2^-24·Σ|q_i k_i|·Ck^-0.5
+    (a relative difference of P of twice that), plus the forward's difference
+    ``out_err`` (max |ΔO|), which δ = Σ dO·O carries into dS."""
+    from yolo_puncture_tpu_torch.ops.kernels.memory_readout import readout_weights
+
+    Q, Ck = q.shape
+    No, M, Cv = v.shape
+    scale = Ck ** -0.5
+    qa, ka, va, da = q.abs(), k.abs(), v.abs(), d_out.abs()
+    P = readout_weights(q, k, ok)
+    out = torch.einsum("qm,nmc->nqc", P, v)
+    delta_mag = (da * out.abs()).sum(dim=(0, 2))                                    # (Q,)
+    dS_mag = P * (torch.einsum("nqc,nmc->qm", da, va) + delta_mag[:, None])
+    logit_err = Ck * FP32_UNIT * float(((qa @ ka.T) * ok[None]).max()) * scale
+    rel = (M + No * Cv) * FP32_UNIT + 2.0 * logit_err
+    d_delta = da.sum(dim=(0, 2)) * out_err                                          # (Q,) bound of Δδ
+    lq = rel * (dS_mag @ ka) * scale + d_delta[:, None] * (P @ ka) * scale
+    lk = rel * (dS_mag.T @ qa) * scale + (P * d_delta[:, None]).T @ qa * scale
+    lv = (Q * FP32_UNIT + 2.0 * logit_err) * torch.einsum("qm,nqc->nmc", P, da)
+    return lq, lk, lv
+
+
+def check_readout_grad_case(case, device, seed=500) -> float:
+    """The readout's backward on the card (kernel forward, ``MemoryReadout``'s
+    backward) against the same Function on the port's CPU path and against a
+    float64 autograd readout on the card, within ``readout_grad_limits``; rows with
+    no valid element get zeros.  Returns the largest difference to the CPU run
+    relative to the limit."""
+    q, k, v, ok, d_out = readout_grad_inputs(case, device, seed)
+    out, *grads = readout_grads(q, k, v, ok, d_out)
+    cpu_out, *cpu = readout_grads(q.cpu(), k.cpu(), v.cpu(), ok.cpu(), d_out.cpu())
+    ref_out, *ref = readout_grads_fp64(q, k, v, ok, d_out)
+    out_err = float((out - cpu_out.to(device)).abs().max())
+    limits = readout_grad_limits(q, k, v, ok, d_out, max(out_err, float((out.double() - ref_out).abs().max())))
+    worst = 0.0
+    parts = []
+    for name, g, c, r, lim in zip(("dq", "dk", "dv"), grads, cpu, ref, limits):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"memory_readout backward: {name} is not finite")
+        d_cpu = (g - c.to(device)).abs()
+        d_ref = (g.double() - r).abs()
+        # an invalid element's gradient and its limit are both 0
+        share = max(float(torch.where(lim > 0, d / lim, d * float("inf")).nan_to_num(0.0).max())
+                    for d in (d_cpu.double(), d_ref))
+        worst = max(worst, share)
+        parts.append(f"{name} max abs diff {float(d_cpu.max()):.3g} to the CPU, {float(d_ref.max()):.3g} to float64 "
+                     f"(|g| up to {float(r.abs().max()):.3g}; at most {share:.3g} of the limit)")
+        if not (bool((d_cpu <= lim).all()) and bool((d_ref <= lim).all())):
+            raise AssertionError(f"memory_readout backward {case}: {name} outside its limit ({share:.3g} of it)")
+    log(f"memory_readout backward Q={case[0]} M={case[1]} No={case[2]} valid={case[3]} "
+        f"({int(ok.sum())} valid): forward diff to the CPU {out_err:.3g}; " + "; ".join(parts))
+    return worst
+
+
+def tail_grad_limit_rel(N, No, H16, W16) -> float:
+    """Per-tensor limit of the tail's gradients, two fp32 runs against each other:
+    n·2^-24 of the gradient's norm, n the longest chain of sums from the logits'
+    cotangent to a gradient: a weight's gradient sums over every pixel of every
+    cell at stride 8 (N·No·H8·W8), after the 3×3 × 64 products back through dec4
+    and the head's 64."""
+    return (N * No * 4 * H16 * W16 + 9 * 64 + 64 + 9 * 128) * FP32_UNIT
+
+
+def check_tail_grad_case(net, case, device, seed=520) -> float:
+    """The tail's backward on the card (kernel forward, ``DecodeTail``'s backward:
+    the un-packed tail's vector-Jacobian product) against the same on the port's
+    CPU path and against a float64 run of the un-packed tail on the card, each
+    gradient (hidden, f8p, f4p and the eight raw weights) within
+    ``tail_grad_limit_rel`` of its norm.  Returns the largest relative difference."""
+    import copy
+
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+
+    N, No, H16, W16 = case
+    hidden, f8p, f4p = tail_inputs(N, No, H16, W16, torch.float32, seed, device)
+    d_out = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((N, No, 4 * H16, 4 * W16))
+                             .astype(np.float32)).to(device)
+
+    def run(dec, dev, dtype=torch.float32):
+        x = [t.detach().to(dev, dtype).requires_grad_() for t in (hidden, f8p, f4p)]
+        dec.zero_grad(set_to_none=True)
+        params = dec.tail_params(torch.float32)
+        if dtype == torch.float64:
+            out = dt.decode_tail_unpacked(params.raw, *x)
+        else:
+            out = dt.decode_tail(params, *x)
+            if out.grad_fn is None:
+                raise AssertionError("decode_tail returned a tensor without grad_fn for inputs that require one")
+        out.backward(d_out.to(dev, dtype))
+        names = [n for n in dt.RAW_FIELDS if "running" not in n]
+        params = dict(dec.named_parameters())
+        return [t.grad for t in x] + [params[n].grad for n in names], ["hidden", "f8p", "f4p"] + names
+
+    dec = net.decoder
+    dec.requires_grad_(True)
+    got, names = run(dec, device)
+    cpu, _ = run(copy.deepcopy(dec).cpu(), "cpu")
+    ref, _ = run(copy.deepcopy(dec).double(), device, torch.float64)
+    dec.requires_grad_(False)
+    rel = tail_grad_limit_rel(*case)
+    worst, parts = 0.0, []
+    for name, g, c, r in zip(names, got, cpu, ref):
+        if g is None or not torch.isfinite(g).all():
+            raise AssertionError(f"decode_tail backward: no finite gradient for {name}")
+        e_cpu = float((g - c.to(device)).norm() / c.norm())
+        e_ref = float((g.double() - r).norm() / r.norm())
+        worst = max(worst, e_cpu, e_ref)
+        parts.append(f"{name} {e_cpu:.2g}/{e_ref:.2g}")
+    log(f"decode_tail backward N={N} No={No} {H16}x{W16}: relative norm of the difference to the CPU / to float64, "
+        f"per gradient: {', '.join(parts)} (limit {rel:.3g})")
+    if worst > rel:
+        raise AssertionError(f"decode_tail backward {case}: a gradient is {worst:.3g} from its reference (> {rel:.3g})")
+    return worst
+
+
+TRACKER_TRAIN_ARGS = ["--clips", "mixed"]            # apps/train_tracker.py's defaults: 256², clip 4, 4 objects, B 8
+DET_TRAIN_B, DET_TRAIN_STEPS, TRACK_TRAIN_STEPS, TRACK_WINDOW_STEPS = 8, 10, 20, 10
+
+
+def grads_match(params_gpu, params_cpu, rel, glob, what):
+    """Each gradient within rel·‖g‖ + glob·‖all of g‖ of the CPU's; returns the worst share of the limit."""
+    total = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in params_cpu)))
+    worst = 0.0
+    for (name, pg), pc in zip(params_gpu, params_cpu):
+        err = float((pg.grad.cpu() - pc.grad).norm())
+        lim = rel * float(pc.grad.norm()) + glob * total
+        worst = max(worst, err / lim)
+        if err > lim:
+            raise AssertionError(f"{what}: the gradient of {name} is {err:.3g} from the CPU's (limit {lim:.3g})")
+    return worst
+
+
+def polygon_batch(B, S, seed, max_boxes=32):
+    """A synthetic detector batch: B seeded images of S² with 1–4 random polygons
+    each (filled brighter than the noise; radii of 15–40 % of S, since the seeded
+    head's boxes span about 15 cells a level and a small object overlaps none
+    enough to be assigned), their boxes and masks at S/4."""
+    from yolo_puncture_tpu_torch.train.data import _rasterize
+
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 90, (B, S, S, 3)).astype(np.float32) / 255.0
+    out = {"images": images, "gt_labels": np.zeros((B, max_boxes), np.int32),
+           "gt_bboxes": np.zeros((B, max_boxes, 4), np.float32), "mask_gt": np.zeros((B, max_boxes), bool),
+           "gt_masks": np.zeros((B, max_boxes, S // 4, S // 4), np.float32)}
+    for b in range(B):
+        for i in range(int(rng.integers(1, 5))):
+            c = rng.uniform(0.3 * S, 0.7 * S, 2)
+            r = rng.uniform(0.15 * S, 0.4 * S)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+            poly = np.clip(np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1), 0, S - 1).astype(np.float32)
+            m = _rasterize(poly, S, S) > 0
+            out["images"][b][m] = np.float32(200 / 255.0)
+            out["gt_bboxes"][b, i] = (*poly.min(0), *poly.max(0))
+            out["mask_gt"][b, i] = True
+            out["gt_masks"][b, i] = _rasterize(poly / 4.0, S // 4, S // 4)
+    return out
+
+
+def train_tracker_phase(smi: str, steps=TRACK_TRAIN_STEPS, window_steps=TRACK_WINDOW_STEPS, argv=None,
+                        device=None) -> dict:
+    """3q: ``PropagationTrainer`` as ``apps/train_tracker.py`` builds it with its
+    defaults (256², clips of 4, 4 objects, batch 8, a ring of 4 written every
+    frame, long-term off, ``--clips mixed``, seeded init) on the card: one step's
+    loss and gradients against the port's CPU run of the same batch, then timed
+    steps per frame and with ``window_mix`` 0.5.  Returns the kernels' launches."""
+    import copy
+
+    from yolo_puncture_tpu_torch.apps import train_tracker as tt_app
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.track import TrackerCore
+    from yolo_puncture_tpu_torch.track import train as ttrain
+
+    targs = tt_app.parse_args(TRACKER_TRAIN_ARGS + (argv or []))
+    tcore, trainer = tt_app.build_trainer(targs, device)
+    log(f"tracker trainer: {targs.height}x{targs.width}, clip_len {targs.clip_len}, {targs.max_objects} objects, "
+        f"batch {targs.batch}, ring {tcore.memory.keys.shape[0]} written every frame, long-term "
+        f"{tcore.enable_long_term}, clips {targs.clips}, lr {targs.lr}, seeded init")
+    launches = {"memory_readout": 0, "decode_tail": 0}
+    images, onehot, valid = trainer._sample_batch()
+    cpu_core = TrackerCore(variables=copy.deepcopy(tcore.net).cpu().state_dict(), device="cpu",
+                           image_size=tcore.image_size, max_objects=tcore.max_objects, mem_frames=4, mem_every=1,
+                           enable_long_term=False)
+    cpu_trainer = ttrain.PropagationTrainer(cpu_core, lr=targs.lr, clip_len=targs.clip_len, batch_size=targs.batch)
+    mr.memory_readout.launches = dt.decode_tail.launches = 0
+    loss_gpu = trainer.loss_and_grads(images, onehot, valid)
+    torch.cuda.synchronize()
+    step_launches = (mr.memory_readout.launches, dt.decode_tail.launches)
+    t = time.perf_counter()
+    loss_cpu = cpu_trainer.loss_and_grads(images.cpu(), onehot.cpu(), valid.cpu())
+    cpu_s = time.perf_counter() - t
+    share = grads_match(list(tcore.net.named_parameters()), list(cpu_core.net.parameters()), TRACK_STEP_GRAD_REL,
+                        TRACK_STEP_GRAD_GLOBAL, "tracker trainer")
+    log(f"main path (tracker training step, {targs.batch} clips of {targs.clip_len} frames): memory_readout launched "
+        f"{step_launches[0]}, decode_tail {step_launches[1]} times; loss {loss_gpu:.6f} on the card, {loss_cpu:.6f} "
+        f"on the CPU ({cpu_s:.1f} s); gradients at most {share:.3g} of their limit (rel {TRACK_STEP_GRAD_REL}, "
+        f"global {TRACK_STEP_GRAD_GLOBAL})")
+    if step_launches != (targs.batch * targs.clip_len,) * 2:
+        raise AssertionError(f"the tracker's training step launched {step_launches}, not one readout and one tail "
+                             f"a frame")
+    if not (np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRACK_STEP_LOSS_REL * abs(loss_cpu)):
+        raise AssertionError(f"tracker training loss {loss_gpu} against the CPU's {loss_cpu}")
+    launches["memory_readout"] += step_launches[0]
+    launches["decode_tail"] += step_launches[1]
+    del cpu_core, cpu_trainer
+    trainer.opt.step()
+    for name, mix, n in (("per-frame", 0.0, steps), ("window_mix 0.5", 0.5, window_steps)):
+        trainer.window_mix = mix
+        if mix and trainer.window_loss_fn is None:
+            # clip_len − 1 = 3 frames after the first must fill whole windows: window 3 (the app's
+            # default window of 4 needs --clip_len 5)
+            trainer.window_loss_fn = ttrain.build_windowed_propagation_loss(tcore, 3)
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last = trainer.fit(steps=n, log_every=0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / n
+        got = (mr.memory_readout.launches / n, dt.decode_tail.launches / n)
+        log(f"main path (tracker training, {name}): {n} steps, {ms:.1f} ms a step, "
+            f"{targs.batch * 1e3 / ms:.1f} clips/s; launches a step (memory_readout, decode_tail) {got}; last loss "
+            f"{last:.6f} [{smi}]")
+        if not (np.isfinite(last) and min(got) > 0):
+            raise AssertionError(f"tracker training ({name}): loss {last}, launches {got}")
+        launches["memory_readout"] += mr.memory_readout.launches
+        launches["decode_tail"] += dt.decode_tail.launches
+    return launches
+
+
+def train_detector_phase(smi: str, imgsz: int = 640, batch: int = DET_TRAIN_B, steps: int = DET_TRAIN_STEPS,
+                         model: str = "yolo10s-seg", device=None) -> None:
+    """3r: the detector's ``Trainer`` on YOLOv10-S seg (published widths and depth,
+    one class) at 640² on a synthetic batch of polygons: one step's losses and
+    gradients at B 2 against the port's CPU run, then ``steps`` timed steps at
+    ``batch`` (ms a step, images/s, peak memory)."""
+    import copy
+
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.train import Trainer
+
+    det_model = YOLO(model, nc=1, seed=0, device=device).model
+    det_batch = polygon_batch(batch, imgsz, seed=8)
+    cpu_model = copy.deepcopy(det_model).cpu()
+    small = {k: v[:2] for k, v in det_batch.items()}
+    gpu_tr, cpu_tr = Trainer(det_model, nc=1, imgsz=imgsz), Trainer(cpu_model, nc=1, imgsz=imgsz)
+    t = time.perf_counter()
+    _, l_gpu = gpu_tr.loss_and_grads(gpu_tr._to_device(gpu_tr._quantize_for_transfer(small)))
+    _, l_cpu = cpu_tr.loss_and_grads(cpu_tr._to_device(cpu_tr._quantize_for_transfer(small)))
+    comp = {k: (float(l_gpu[k].detach()), float(l_cpu[k].detach())) for k in l_cpu}
+    share = grads_match(list(det_model.named_parameters()), list(cpu_model.parameters()), DET_STEP_GRAD_REL,
+                        DET_STEP_GRAD_GLOBAL, "detector trainer")
+    log(f"detector trainer {model} {imgsz}^2, B 2 against the CPU ({time.perf_counter() - t:.1f} s): losses "
+        f"(card, CPU) {json.dumps(comp)}; gradients at most {share:.3g} of their limit (rel {DET_STEP_GRAD_REL}, "
+        f"global {DET_STEP_GRAD_GLOBAL})")
+    for k, (a, b) in comp.items():
+        if not (np.isfinite(a) and abs(a - b) <= DET_STEP_LOSS_REL * abs(b) + 1e-7):
+            raise AssertionError(f"detector training loss {k}: {a} on the card, {b} on the CPU")
+    if comp["box"][1] <= 0 or comp["seg"][1] <= 0:
+        raise AssertionError("the synthetic batch gave no positives")
+    del cpu_model, cpu_tr
+    state = gpu_tr.init_state()
+    state, m = gpu_tr.train_step(state, det_batch)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    totals = []
+    for _ in range(steps):
+        state, m = gpu_tr.train_step(state, det_batch)
+        totals.append(float(m["total"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"main path (detector training, {model} {imgsz}^2, B {batch}): {steps} steps {ms:.1f} ms a step, "
+        f"{batch * 1e3 / ms:.1f} images/s, peak memory {peak:.2f} GiB; totals {[round(v, 3) for v in totals]} [{smi}]")
+    if not all(np.isfinite(totals)):
+        raise AssertionError("detector training gave a loss that is not finite")
+
+
+def train_apps_phase(imgsz: int = 640, device=None, tracker_argv=(), model: str = "yolo10s-seg") -> dict:
+    """3s: ``train_tracker --steps 20`` writes a msgpack that ``TrackerCore`` loads
+    and steps with; ``yolo_cli train`` for 2 steps, then ``val``, on a synthetic
+    PNG dataset in a temporary directory under ``build/``.  Returns the kernels'
+    launches."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from yolo_puncture_tpu_torch.apps import train_tracker as tt_app
+    from yolo_puncture_tpu_torch.apps import yolo_cli
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.track import ObjectInfo, TrackerCore
+    from yolo_puncture_tpu_torch.utils.png import write_png_rgb
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        out = os.path.join(tmp, "tracker.msgpack")
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            iou0, iou1 = tt_app.main(TRACKER_TRAIN_ARGS + list(tracker_argv) + ["--steps", "20", "--eval_clips", "4",
+                                                                                  "--output", out], device=device)
+        lines = buf.getvalue().splitlines()
+        got = {"memory_readout": mr.memory_readout.launches, "decode_tail": dt.decode_tail.launches}
+        log(f"main path (train_tracker --steps 20): {time.perf_counter() - t:.1f} s, launches {json.dumps(got)}; "
+            f"lines {lines[0]!r} … {lines[-2]!r} {lines[-1]!r}")
+        if min(got.values()) <= 0 or lines[-1] != f"saved {out}" or not lines[0].startswith("propagation IoU before: "):
+            raise AssertionError("train_tracker did not run its kernels or print its lines")
+        targs = tt_app.parse_args(TRACKER_TRAIN_ARGS + list(tracker_argv))
+        loaded = TrackerCore(variables=out, image_size=(targs.height, targs.width), max_objects=targs.max_objects,
+                             mem_frames=4, mem_every=1, enable_long_term=False, device=device)
+        frames, masks = bar_frames(3, targs.height, targs.width, seed=9)
+        loaded.incorporate_detection(frames[0], masks[0].astype(np.int32), [ObjectInfo(id=1)])
+        prob = np.stack([loaded.step(f) for f in frames[1:]])
+        if not np.isfinite(prob).all():
+            raise AssertionError("the trained tracker's msgpack does not load and step")
+        log(f"train_tracker's msgpack ({os.path.getsize(out)} bytes) loads in TrackerCore and steps; IoU before "
+            f"{iou0:.3f}, after {iou1:.3f}")
+
+        data = os.path.join(tmp, "data")
+        for split, n in (("train", 4), ("val", 2)):
+            os.makedirs(os.path.join(data, "images", split))
+            os.makedirs(os.path.join(data, "labels", split))
+            b = polygon_batch(n, 480, seed=20 + n)
+            for i in range(n):
+                write_png_rgb(os.path.join(data, "images", split, f"{i}.png"),
+                              (b["images"][i] * 255).round().astype(np.uint8))
+                with open(os.path.join(data, "labels", split, f"{i}.txt"), "w") as f:
+                    for x1, y1, x2, y2 in b["gt_bboxes"][i][b["mask_gt"][i]] / 480.0:
+                        f.write(f"0 {x1:.5f} {y1:.5f} {x2:.5f} {y1:.5f} {x2:.5f} {y2:.5f} {x1:.5f} {y2:.5f}\n")
+        run = os.path.join(tmp, "run")
+        aug = [] if importlib.util.find_spec("cv2") else ["augment=false"]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            st = yolo_cli.main(["train", f"data={data}", f"model={model}", "epochs=1", f"imgsz={imgsz}", "batch=2",
+                                f"project={run}"] + aug, device=device)
+            yolo_cli.main(["val", f"data={data}", f"model={run}", f"arch={model}", f"imgsz={imgsz}"], device=device)
+        lines = buf.getvalue().splitlines()
+        log(f"yolo_cli train (2 steps, {'augmented' if not aug else 'no augmentation: no cv2'}) then val: "
+            f"{time.perf_counter() - t:.1f} s; lines {lines}")
+        if st.step != 2 or lines[0] != f"training done: 2 steps; checkpoints in {run}" \
+                or not lines[1].startswith("box  mAP50="):
+            raise AssertionError("yolo_cli train / val did not print their lines")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1518,6 +1947,12 @@ def main() -> int:
     net = needle_network(device)
     readout_err = check_memory_readout(device)
     tail_err = check_decode_tail(net, device)
+    # the backward of both (training): against the port's CPU path and a float64 run on the card
+    grad_share = {"memory_readout": max(check_readout_grad_case(c, device, 500 + i)
+                                        for i, c in enumerate(READOUT_GRAD_CASES)),
+                  "decode_tail": max(check_tail_grad_case(net, c, device, 520 + i)
+                                     for i, c in enumerate(TAIL_GRAD_CASES))}
+    log(f"backward of the tracker's kernels within their limits: {json.dumps(grad_share)}")
     proto_err = check_proto_decode(device)
     max_err = {"proto_decode": proto_err[torch.float32],
                "proto_decode_bf16": proto_err[BF16],
@@ -1995,6 +2430,13 @@ def main() -> int:
         log(f"bench {name}:")
         print(json.dumps(res), flush=True)
 
+    # -- 3q-3s. training: the tracker's trainer, the detector's Trainer, their entry points ---------------
+    for k, n in train_tracker_phase(smi).items():
+        launches[k] += n
+    train_detector_phase(smi, imgsz)
+    for k, n in train_apps_phase(imgsz).items():
+        launches[k] += n
+
     # -- 4. the same calls on the CPU ------------------------------------------------------
     det_cpu = YOLO("yolo10s-seg", nc=1, seed=0, device="cpu")
     for name, res, retina in (("non-retina", res_plain, False), ("retina", res_retina, True)):
@@ -2297,6 +2739,33 @@ def main() -> int:
             f"{json.dumps({k: round(v, 3) for k, v in stages.items()})} [{smi}]")
     core.affinity_bf16 = True
     del model16, btracker, bframes, core
+
+    # -- 6h. the backward of the tracker's kernels at the trainer's shapes, beside their forward -----------
+    for name, make in (("memory_readout", lambda: readout_grad_inputs(READOUT_GRAD_CASES[0], device, 600)),
+                       ("decode_tail", lambda: (*tail_inputs(*TAIL_GRAD_CASES[1], torch.float32, 601, device),))):
+        if name == "memory_readout":
+            q, k, v, ok, d_out = make()
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            fwd = lambda: mr.memory_readout(q, k, v, ok)                    # noqa: E731
+            lib_fwd = lambda: memory_readout_dense(q, k, v, ok)             # noqa: E731
+        else:
+            hidden, f8p, f4p = make()
+            hidden.requires_grad_()
+            net.decoder.requires_grad_(True)
+            params = net.decoder.tail_params(torch.float32)
+            d_out = torch.ones((3, 4, 64, 64), device=device)
+            fwd = lambda: dt.decode_tail(params, hidden, f8p, f4p)          # noqa: E731
+            lib_fwd = lambda: dt.decode_tail_unpacked(params.raw, hidden, f8p, f4p)   # noqa: E731
+        out, lib_out = fwd(), lib_fwd()
+        fwd_ms = cuda_time_ms(fwd, iters=20, warmup=3)
+        bwd_ms = cuda_time_ms(lambda: out.backward(d_out, retain_graph=True), iters=20, warmup=3)
+        lib_ms = cuda_time_ms(lambda: lib_out.backward(d_out, retain_graph=True), iters=20, warmup=3)
+        log(f"{name} at the trainer's shape: forward (kernel, through the Function) {fwd_ms:.4f} ms, backward "
+            f"{bwd_ms:.4f} ms; autograd of the plain dense version's backward {lib_ms:.4f} ms [{smi}]")
+        entry = next(e for e in kernels if e["name"] == name)
+        entry.update(train_forward_ms=fwd_ms, backward_ms=bwd_ms, backward_grad_share=grad_share[name])
+        del out, lib_out
+    net.decoder.requires_grad_(False)
 
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from the start, the build included [{smi}]")
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,7 @@
     python3 scripts/profile_predict_torch.py --tracker [--out DIR]
     python3 scripts/profile_predict_torch.py --pipeline [--out DIR]
     python3 scripts/profile_predict_torch.py --bench [--batch 128] [--out DIR]
+    python3 scripts/profile_predict_torch.py --train [--out DIR]
 
 Without ``--tracker``: one ``YOLO.predict`` in ``chip_smoke.py``'s configuration
 (YOLOv10-S seg, seeded random init, seeded 720×1280 frames, imgsz 640, conf
@@ -16,7 +17,11 @@ window of ``step_batch`` and 5 ``step`` calls.  With ``--pipeline``: one
 configuration (67 needle frames of 720×1280, YOLOv10-S seg at 640²,
 EfficientNet-B3 on 380² crops, ``device_batch=8``, seeded random weights, the
 same ``conf``).  With ``--bench``: one fused step of
-``python -m yolo_puncture_tpu_torch.bench`` (B 128 by default).  Each time two
+``python -m yolo_puncture_tpu_torch.bench`` (B 128 by default).  With
+``--train``: one training step of the tracker's trainer in ``chip_smoke.py``'s
+phase 3q configuration (``apps/train_tracker.py``'s defaults: 8 clips of 4
+frames at 256², seeded init) and one of the detector's ``Trainer`` in phase 3r's
+(YOLOv10-S seg at 640², B 8, a synthetic batch of polygons).  Each time two
 warm-up calls,
 then one call under ``torch.profiler``.  Prints one JSON object per profile:
 the call's wall time on the host clock, the summed device time of every kernel
@@ -47,6 +52,7 @@ def main() -> int:
     ap.add_argument("--tracker", action="store_true")
     ap.add_argument("--pipeline", action="store_true")
     ap.add_argument("--bench", action="store_true")
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -75,6 +81,9 @@ def main() -> int:
 
     if args.bench:
         return profile_bench(args.batch or 128, args.out, smi)
+
+    if args.train:
+        return profile_train(args.out, smi)
 
     if args.pipeline:
         from chip_smoke import PIPE_FRAMES, PIPE_KEY_FRAME, needle_clip, pipeline_conf
@@ -123,6 +132,31 @@ def profile_bench(batch: int, out_dir: str, card: str) -> int:
 
     steps(2)
     profile_call(lambda: steps(1), f"bench_b{batch}", out_dir, card, {"batch": batch, "frames_hw": bm.FRAME_HW})
+    return 0
+
+
+def profile_train(out_dir: str, card: str) -> int:
+    """One step of each trainer under the profiler, after two unprofiled ones."""
+    from chip_smoke import DET_TRAIN_B, TRACKER_TRAIN_ARGS, polygon_batch
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.apps import train_tracker
+    from yolo_puncture_tpu_torch.train import Trainer
+
+    args = train_tracker.parse_args(TRACKER_TRAIN_ARGS)
+    _, trainer = train_tracker.build_trainer(args)
+    batch = trainer._sample_batch()
+    for _ in range(2):
+        trainer.train_step(*batch)
+    profile_call(lambda: trainer.train_step(*batch), "train_tracker_step", out_dir, card,
+                 {"clips": args.batch, "clip_len": args.clip_len, "hw": [args.height, args.width],
+                  "objects": args.max_objects})
+    tr = Trainer(YOLO("yolo10s-seg", nc=1, seed=0).model, nc=1, imgsz=640)
+    state = tr.init_state()
+    det_batch = polygon_batch(DET_TRAIN_B, 640, seed=8)
+    for _ in range(2):
+        state, _ = tr.train_step(state, det_batch)
+    profile_call(lambda: tr.train_step(state, det_batch), "train_detector_step", out_dir, card,
+                 {"model": "yolo10s-seg", "imgsz": 640, "batch": DET_TRAIN_B})
     return 0
 
 

@@ -8,6 +8,8 @@ before the products, and fp32 sums of up to 1152 terms come in another order).
 The CUDA kernel itself is held to the plain version by ``tests/test_torch_gpu.py``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +59,7 @@ def test_plain_version_matches_jax(setup, oracle):
     variables, net, hidden, f8p, f4p = setup
     ref = _jax_oracle(oracle, variables, hidden, f8p, f4p)
     params = net.decoder.tail_params(torch.float32)
-    got = decode_tail(params, torch.from_numpy(hidden), torch.from_numpy(f8p), torch.from_numpy(f4p)).numpy()
+    got = decode_tail(params, torch.from_numpy(hidden), torch.from_numpy(f8p), torch.from_numpy(f4p)).detach().numpy()
     assert got.shape == (N, NO, 4 * H16, 4 * W16) and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, **TOL)
 
@@ -240,3 +242,71 @@ def test_three_tf32_products_are_fp32_class_and_one_is_not(setup, products):
     h, f8, f4 = torch.from_numpy(hidden), torch.from_numpy(f8p), torch.from_numpy(f4p)
     err = float((_tail_on_tf32(params, h, f8, f4, products) - decode_tail_reference(params, h, f8, f4)).abs().max())
     assert (err <= 2e-4) == (products == 3), err
+
+
+# -- gradients (training) -----------------------------------------------------------------
+GRAD_REL = 1e-5   # per tensor, ‖g_port − g_jax‖ / ‖g_jax‖, fp32
+TAIL_RAW = {  # the port's parameter → the JAX decoder's
+    "dec8.conv.weight": ("dec8", "conv", "kernel"), "dec8.bn.weight": ("dec8", "bn", "scale"),
+    "dec8.bn.bias": ("dec8", "bn", "bias"), "dec4.conv.weight": ("dec4", "conv", "kernel"),
+    "dec4.bn.weight": ("dec4", "bn", "scale"), "dec4.bn.bias": ("dec4", "bn", "bias"),
+    "out.weight": ("out", "kernel"), "out.bias": ("out", "bias"),
+}
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_gradients_match_jax_grad_of_the_unpacked_tail(n):
+    """The repair: through ``MaskDecoder.decode_tail`` every raw tail weight and the
+    three activations get ``jax.grad`` of ``PropagationNetwork.decode_tail`` (before,
+    the packed weights were made under ``no_grad`` from detached tensors and the
+    weights' gradients stayed None).  The training shape: hidden 16×16 → 64×64
+    logits, 4 objects, ``n`` frames."""
+    variables = seeded_tracker_variables(seed=6, image_hw=(64, 64))
+    net = port_tracker_network(variables)
+    rng = np.random.default_rng(9)
+    hidden = rng.standard_normal((n, 4, 16, 16, 128)).astype(np.float32)
+    f8p = rng.standard_normal((n, 32, 32, 64)).astype(np.float32)
+    f4p = rng.standard_normal((n, 64, 64, 64)).astype(np.float32)
+    d_out = rng.standard_normal((n, 4, 64, 64)).astype(np.float32)
+
+    jnet = JaxNet()
+
+    def loss(params, h, f8, f4):
+        v = {"params": params, "batch_stats": variables["batch_stats"]}
+        out = jax.vmap(lambda a, b, c: jnet.apply(v, a, b, c, method=JaxNet.decode_tail))(h, f8, f4)
+        return (out * d_out).sum()
+
+    g_params, gh, g8, g4 = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+        variables["params"], jnp.asarray(hidden), jnp.asarray(f8p), jnp.asarray(f4p))
+
+    th, t8, t4 = (to_nchw(a).requires_grad_() for a in (hidden, f8p, f4p))
+    out = net.decoder.decode_tail(th, t8, t4)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(d_out)).sum().backward()
+
+    def rel(got, ref):
+        return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+    for name, got, ref in (("hidden", th.grad, gh), ("f8p", t8.grad, g8), ("f4p", t4.grad, g4)):
+        got = np.moveaxis(got.numpy(), -3, -1)
+        assert rel(got, np.asarray(ref)) <= GRAD_REL, (name, rel(got, np.asarray(ref)))
+    dec = dict(net.decoder.named_parameters())
+    for name, path in TAIL_RAW.items():
+        ref = np.asarray(functools.reduce(lambda t, k: t[k], path, g_params["decoder"]))
+        if path[-1] == "kernel":
+            ref = ref.transpose(3, 2, 0, 1)
+        assert dec[name].grad is not None, name
+        assert rel(dec[name].grad.numpy(), ref) <= GRAD_REL, (name, rel(dec[name].grad.numpy(), ref))
+    assert net.decoder.dec8.bn.running_var.grad is None
+
+
+def test_gradient_path_keeps_the_forward_and_refuses_bf16(setup):
+    _, net, hidden, f8p, f4p = setup
+    params = net.decoder.tail_params(torch.float32)
+    args = (torch.from_numpy(hidden), torch.from_numpy(f8p), torch.from_numpy(f4p))
+    with torch.no_grad():
+        plain = decode_tail(params, *args)
+    assert torch.equal(decode_tail(params, args[0].clone().requires_grad_(), *args[1:]).detach(), plain)
+    p16 = net.decoder.tail_params(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        decode_tail(p16, args[0].bfloat16().requires_grad_(), args[1].bfloat16(), args[2])

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
 ``YOLO.predict``, ``TrackerCore`` and the speed pipeline's device step on ``cuda``
-against the same code on the CPU.
+against the same code on the CPU; the backward of the tracker's two kernels
+(``MemoryReadout``, ``DecodeTail``) against their CPU path and float64.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -24,7 +25,9 @@ from chip_smoke import (
     READOUT_AFFINITY_CASES,
     READOUT_CASES,
     READOUT_FP64_CASES,
+    READOUT_GRAD_CASES,
     TAIL_CASES,
+    TAIL_GRAD_CASES,
     BarDetector,
     bar_frames,
     check_decode_tail_case,
@@ -33,7 +36,10 @@ from chip_smoke import (
     check_readout_affinity_case,
     check_readout_case,
     check_readout_fp64_case,
+    check_readout_grad_case,
+    check_tail_grad_case,
     needle_clip,
+    needle_network,
     pipeline_conf,
     pipeline_step_numpy,
     run_track_app,
@@ -287,3 +293,47 @@ def test_track_video_on_the_card_matches_the_cpu(cuda, tmp_path, mode):
     before = proto_decode.launches
     run_track_app(argv + ["--output", str(tmp_path / "yolo")], frames)
     assert proto_decode.launches > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", READOUT_GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_memory_readout_backward_matches_the_cpu_and_float64(cuda, case):
+    """``chip_smoke.py``'s cases (the tracker trainer's readout, full and half
+    filled, and the app's frame) and ``readout_grad_limits``: the kernel's forward,
+    the Function's backward, against the same Function on the CPU and a float64
+    autograd readout on the card."""
+    before = memory_readout.launches
+    check_readout_grad_case(case, cuda, seed=7)
+    assert memory_readout.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TAIL_GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_decode_tail_backward_matches_the_cpu_and_float64(cuda, case):
+    """The tail's gradients (activations and the eight raw weights) with the
+    needle checkpoint's decoder, within ``tail_grad_limit_rel`` of the CPU's and
+    of a float64 run of the un-packed tail."""
+    before = decode_tail.launches
+    check_tail_grad_case(needle_network(cuda), case, cuda, seed=8)
+    assert decode_tail.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_kernels_keep_the_autograd_graph_on_cuda(cuda):
+    """A CUDA input that requires a gradient never comes back without a
+    ``grad_fn``; bf16 training raises."""
+    q, k, v = (torch.randn(*s, device=cuda) for s in ((64, 64), (300, 64), (2, 300, 128)))
+    ok = torch.ones(300, dtype=torch.bool, device=cuda)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_()
+        assert memory_readout(*args, ok).grad_fn is not None
+    with pytest.raises(NotImplementedError):
+        memory_readout(q.bfloat16().requires_grad_(), k.bfloat16(), v.bfloat16(), ok)
+    net = needle_network(cuda)
+    h = torch.randn(1, 2, 4, 4, 128, device=cuda)
+    f8, f4 = torch.randn(1, 8, 8, 64, device=cuda), torch.randn(1, 16, 16, 64, device=cuda)
+    params = net.decoder.tail_params(torch.float32)
+    assert decode_tail(params, h.requires_grad_(), f8, f4).grad_fn is not None
+    net.decoder.out.weight.requires_grad_(True)
+    assert decode_tail(net.decoder.tail_params(torch.float32), h.detach(), f8, f4).grad_fn is not None

@@ -54,7 +54,8 @@ def test_walk_finds_every_layer():
               "tasks", "tasks.classify", "pipeline", "pipeline.video", "pipeline.runner", "track.saver",
               "utils.png", "utils.plotting", "native", "apps", "apps.track_video", "apps.auto_speed_calc",
               "apps.evaluate_speed", "apps.speed_freq", "apps.serve", "apps.app", "apps.webui", "apps.yolo_cli",
-              "models.u2net", "tasks.unet"):
+              "models.u2net", "tasks.unet", "track.train", "apps.train_tracker", "train", "train.assigner",
+              "train.losses", "train.trainer", "train.data", "train.metrics"):
         assert f"yolo_puncture_tpu_torch.{m}" in names
 
 
@@ -232,3 +233,43 @@ def test_server_and_web_ui_answer_a_png_without_cv2_pil_or_gradio():
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("served without cv2, PIL or gradio")
+
+
+def test_training_runs_without_cv2(tmp_path):
+    """With jax, flax, yolo_puncture_tpu, apps and cv2 out of reach: the tracker's
+    trainer takes an Adam step and writes its flax msgpack (``train_tracker``),
+    and the detector's ``Trainer`` takes an SGD step on a batch that
+    ``SegDataset.load`` reads from PNG files (the letterbox resize and the
+    polygon fill without cv2)."""
+    code = (
+        "import importlib, os, sys\n"
+        f"for m in {FORBIDDEN + ('cv2',)!r}: sys.modules[m] = None\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from yolo_puncture_tpu_torch.apps import train_tracker\n"
+        f"out = {str(tmp_path)!r}\n"
+        "train_tracker.main(['--steps', '1', '--height', '32', '--width', '32', '--clip_len', '4', '--max_objects',\n"
+        "                    '2', '--batch', '1', '--eval_clips', '1', '--output', os.path.join(out, 't.msgpack')],\n"
+        "                   device='cpu')\n"
+        "from yolo_puncture_tpu_torch.utils.png import write_png_rgb\n"
+        "os.makedirs(os.path.join(out, 'images', 'train')); os.makedirs(os.path.join(out, 'labels', 'train'))\n"
+        "for i in range(2):\n"
+        "    write_png_rgb(os.path.join(out, 'images', 'train', f'{i}.png'), np.full((40, 56, 3), 60 * i, np.uint8))\n"
+        "    open(os.path.join(out, 'labels', 'train', f'{i}.txt'), 'w').write('0 0.2 0.2 0.8 0.3 0.6 0.9\\n')\n"
+        "from yolo_puncture_tpu_torch import YOLO\n"
+        "from yolo_puncture_tpu_torch.train import Trainer\n"
+        "from yolo_puncture_tpu_torch.train.data import SegDataset\n"
+        "ds = SegDataset(out, imgsz=64, augment=False)\n"
+        "batch = next(ds.batches(2))\n"
+        "assert batch['gt_masks'].sum() > 0 and batch['mask_gt'][:, 0].all()\n"
+        "tr = Trainer(YOLO('yolov8n-seg', nc=1, device='cpu').model, nc=1, imgsz=64, warmup_steps=0)\n"
+        "state, m = tr.train_step(tr.init_state(), batch)\n"
+        "assert state.step == 1 and np.isfinite(float(m['total']))\n"
+        "leaked = sorted(k for k in sys.modules if k.split('.')[0] == 'cv2' and sys.modules[k] is not None)\n"
+        "assert not leaked, leaked\n"
+        "print('trained without cv2')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("trained without cv2")

@@ -240,3 +240,87 @@ def test_plain_version_with_bf16_affinity_matches_the_dense_jax_readout(dtype, s
     else:
         assert (err <= 2.0 ** -7 * np.maximum(np.abs(with_flag), 1.0)).all(), err.max()
         assert err.mean() < err_without.mean(), (err.mean(), err_without.mean())
+
+
+# -- gradients (training) -----------------------------------------------------------------
+# The tracker's training shape: a query of 16×16 (256×256 frames), a ring of 4 × 256
+# elements and the 8 vestigial long-term slots that ``TrackerCore._memory_bank``
+# appends with long-term memory off, 4 objects; the same with a 128-slot long-term
+# bank (M 1152); and a ring with only its first two frames written.
+GRAD_REL = 1e-5   # per tensor, ‖g_port − g_jax‖ / ‖g_jax‖, fp32
+# with affinity_bf16 the cotangent of the logits is rounded to bf16 on both sides from
+# fp32 values that differ by fp32 rounding, so a few elements round to the neighbouring
+# bf16 value (2^-8 relative each); measured 1.2e-4 on a 64 × 200 case
+GRAD_REL_AFFINITY_BF16 = 1e-3
+GRAD_CASES = {  # name: (Q, M, No, valid elements)
+    "training_ring": (256, 1032, 4, 1024),
+    "training_ring_lt128": (256, 1152, 4, 1024),
+    "partly_valid_ring": (256, 1032, 4, 512),
+}
+
+
+def _grad_inputs(Q, M, No, n_valid, seed=11):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((Q, 64)).astype(np.float32)
+    k = rng.standard_normal((M, 64)).astype(np.float32)
+    v = rng.standard_normal((No, M, 128)).astype(np.float32)
+    ok = np.arange(M) < n_valid
+    d_out = rng.standard_normal((No, Q, 128)).astype(np.float32)
+    return q, k, v, ok, d_out
+
+
+def _rel(got, ref):
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _port_grads(q, k, v, ok, d_out, affinity_bf16=False):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = memory_readout(tq, tk, tv, torch.from_numpy(ok), affinity_bf16=affinity_bf16)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(d_out)).sum().backward()
+    return out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(), tv.grad.numpy()
+
+
+def _jax_grads(q, k, v, ok, d_out, affinity_bf16=False):
+    import jax
+
+    def f(q, k, v):
+        return (jax_dense(q, k, v, jnp.asarray(ok), affinity_bf16=affinity_bf16) * d_out).sum()
+
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_gradients_match_jax_grad_of_the_dense_readout(case):
+    """The repair: q, k and v get the gradients of ``jax.grad(memory_readout_dense)``
+    (before, the kernel's output had no ``grad_fn`` on the card)."""
+    q, k, v, ok, d_out = _grad_inputs(*GRAD_CASES[case])
+    out, gq, gk, gv = _port_grads(q, k, v, ok, d_out)
+    np.testing.assert_allclose(out, np.asarray(jax_dense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                         jnp.asarray(ok))), **TOL)
+    for name, got, ref in zip("qkv", (gq, gk, gv), _jax_grads(q, k, v, ok, d_out)):
+        assert _rel(got, ref) <= GRAD_REL, (name, _rel(got, ref))
+    assert not gk[~ok].any() and not gv[:, ~ok].any()      # invalid elements get nothing
+
+
+def test_gradients_with_bf16_affinity_match_jax_grad():
+    q, k, v, ok, d_out = _grad_inputs(256, 1032, 4, 768, seed=12)
+    got = _port_grads(q, k, v, ok, d_out, affinity_bf16=True)[1:]
+    for name, g, ref in zip("qkv", got, _jax_grads(q, k, v, ok, d_out, affinity_bf16=True)):
+        assert _rel(g, ref) <= GRAD_REL_AFFINITY_BF16, (name, _rel(g, ref))
+
+
+def test_rows_without_a_valid_element_get_zero_gradients():
+    q, k, v, _, d_out = _grad_inputs(64, 300, 2, 0, seed=13)
+    _, gq, gk, gv = _port_grads(q, k, v, np.zeros(300, bool), d_out)
+    assert not gq.any() and not gk.any() and not gv.any()
+
+
+def test_gradient_path_keeps_the_forward_and_refuses_bf16():
+    q, k, v, ok, _ = _grad_inputs(64, 300, 2, 200, seed=14)
+    tq, tk, tv, tok = map(torch.from_numpy, (q, k, v, ok))
+    with torch.no_grad():
+        plain = memory_readout(tq, tk, tv, tok)
+    assert torch.equal(memory_readout(tq.requires_grad_(), tk, tv, tok).detach(), plain)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        memory_readout(tq.detach().bfloat16().requires_grad_(), tk.bfloat16(), tv.bfloat16(), tok)

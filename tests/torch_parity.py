@@ -102,10 +102,12 @@ def calibrated_batch_stats(variables, model, inputs, key_of):
     scale and the outputs differ from input to input."""
     import jax
 
+    from yolo_puncture_tpu_torch.nn.common import torch_batch_statistics
+
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = 1.0
-    with torch.no_grad():
+    with torch.no_grad(), torch_batch_statistics(model):
         model.train()(inputs)
     model.eval()
     sd = model.state_dict()
@@ -259,3 +261,29 @@ def bar_clip(n: int, h: int, w: int, seed: int = 0):
     mask = np.zeros((h, w), np.int32)
     mask[y0:y0 + bh, w // 8:w // 8 + bw] = 1
     return frames, mask
+
+
+def write_seg_dataset(root, n_train=5, n_val=2, seed=0):
+    """A YOLO-format dataset of PNG files: bright polygons on noise, 1–3 a frame,
+    frames of a few sizes, one train frame without a label file."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = (48, 80) if i % 2 else (72, 60)
+            img = rng.integers(0, 80, (h, w, 3)).astype(np.uint8)
+            lines = []
+            for _ in range(int(rng.integers(1, 4))):
+                cx, cy = rng.uniform(0.2, 0.8, 2)
+                r = rng.uniform(0.1, 0.25)
+                ang = np.sort(rng.uniform(0, 2 * np.pi, 6))
+                poly = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)], 1).clip(0, 1)
+                cv2.fillPoly(img, [np.round(poly * [w, h]).astype(np.int32)], (200, 220, 240))
+                lines.append("0 " + " ".join(f"{v:.5f}" for v in poly.reshape(-1)))
+            cv2.imwrite(str(root / "images" / split / f"f{i}.png"), img)
+            if not (split == "train" and i == n - 1):
+                (root / "labels" / split / f"f{i}.txt").write_text("\n".join(lines) + "\n")
+    return root

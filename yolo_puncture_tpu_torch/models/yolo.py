@@ -34,6 +34,7 @@ from yolo_puncture_tpu_torch.nn.common import (
     SCDown,
     SPPF,
     to_compute_dtype,
+    torch_batch_statistics,
     upsample_nearest_2x,
 )
 from yolo_puncture_tpu_torch.nn.heads import Detect, Segment
@@ -278,7 +279,8 @@ class YOLOModel(nn.Module):
             F.interpolate(torch.rand((2, 3, 8, 8), generator=g), size=(256, 256), mode="nearest"),
         ])
         self.train()
-        self._forward(images.permute(0, 2, 3, 1).to(next(self.parameters()).device))
+        with torch_batch_statistics(self):
+            self._forward(images.permute(0, 2, 3, 1).to(next(self.parameters()).device))
         self.eval()
         for m in bns:
             m.momentum = 0.03

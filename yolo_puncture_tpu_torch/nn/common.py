@@ -4,7 +4,9 @@ Counterpart of ``yolo_puncture_tpu/nn/common.py``.  Module and attribute names
 follow the ultralytics state-dict layout (``cv1.conv.weight``, ``m.0.cv2.bn``,
 ``cv1.2.conv1.conv`` …), so checkpoints and the weight bridge load by name.
 Padding is the explicit symmetric ``k // 2`` (``autopad``); BatchNorm uses
-ultralytics' eps 1e-3.  Inference only: BatchNorm runs on its running statistics.
+ultralytics' eps 1e-3.  In ``eval()`` BatchNorm runs on its running statistics;
+in ``train()`` it is flax's ``BatchNorm`` (``BatchNorm2d``): the batch's biased
+variance, and the running statistics moved towards it.
 
 A bf16 model (``to_compute_dtype``) is the JAX package's ``dtype=bfloat16``:
 convolutions and linear layers compute in bf16 on bf16 weights (flax keeps fp32
@@ -15,6 +17,7 @@ input in fp32 and rounds its output to bf16 (flax ``BatchNorm(dtype=bf16)``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +47,50 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward is flax's ``BatchNorm(use_running_average=False)``:
+    statistics over (N, H, W) in fp32 (or wider), the variance E[x²] − E[x]² floored at 0
+    (biased, flax's fast variance), and ``running ← (1 − momentum)·running +
+    momentum·batch`` with that biased variance (torch's own update takes the
+    unbiased one); momentum 0.03 is flax's 0.97.  ``eval()`` is unchanged, and so
+    is a layer inside ``torch_batch_statistics``."""
+
+    flax_statistics = True
+
+    def forward(self, x):
+        if not (self.training and self.flax_statistics):
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        var = torch.maximum(var, var.new_zeros(()))
+        if self.track_running_stats:
+            keep = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+                self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def torch_batch_statistics(module: nn.Module):
+    """Inside the block the ``BatchNorm2d`` layers of ``module`` train as
+    ``torch.nn.BatchNorm2d`` does (the unbiased variance in the running
+    statistics).  The seeded inits measure their statistics so, as they did
+    before the layers followed flax in training, so that a seed gives the
+    weights it gave then."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.flax_statistics = False
+    try:
+        yield module
+    finally:
+        for m in layers:
+            m.flax_statistics = True
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm + SiLU: ultralytics ``Conv``."""
 
@@ -51,7 +98,7 @@ class ConvBN(nn.Module):
                  g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=0.03)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=0.03)
         self.act = act
 
     def forward(self, x):

@@ -11,6 +11,12 @@ Outputs: ``boxes`` (B, A, 4) xyxy in input pixels, ``probs`` (B, A, nc) sigmoid,
 and for Segment ``coeffs`` (B, A, nm) and ``proto`` (B, Hp, Wp, nm) (a
 channels-last view of the NCHW bank).  Anchors run over levels in order, each
 level row-major, as in the JAX package.
+
+In ``train()`` mode the heads also return what the losses read
+(``train/losses.py``): the per-level raw maps ``box_feats`` and ``cls_feats``
+(lists of NCHW tensors; the JAX package's are NHWC), for Segment ``coeff_feats``,
+and for v10 ``one2one_box_feats`` / ``one2one_cls_feats``, the one-to-one branch
+computed on detached features as the JAX package ``stop_gradient``s them.
 """
 
 from __future__ import annotations
@@ -105,11 +111,25 @@ class Detect(nn.Module):
         return boxes, torch.sigmoid(cls.float())
 
     def forward(self, feats: List[torch.Tensor]):
+        if self.training:
+            return self._train_forward(feats)
         cv2, cv3 = (self.one2one_cv2, self.one2one_cv3) if self.one2one else (self.cv2, self.cv3)
         boxes, probs = self.decode(
             [m(f) for m, f in zip(cv2, feats)], [m(f) for m, f in zip(cv3, feats)]
         )
         return {"boxes": boxes, "probs": probs}
+
+    def _train_forward(self, feats: List[torch.Tensor]):
+        """Every branch, with the raw per-level maps (module docstring)."""
+        out = {"box_feats": [m(f) for m, f in zip(self.cv2, feats)],
+               "cls_feats": [m(f) for m, f in zip(self.cv3, feats)]}
+        box, cls = out["box_feats"], out["cls_feats"]
+        if self.one2one:
+            detached = [f.detach() for f in feats]
+            box = out["one2one_box_feats"] = [m(f) for m, f in zip(self.one2one_cv2, detached)]
+            cls = out["one2one_cls_feats"] = [m(f) for m, f in zip(self.one2one_cv3, detached)]
+        out["boxes"], out["probs"] = self.decode(box, cls)
+        return out
 
 
 class Segment(Detect):
@@ -128,5 +148,8 @@ class Segment(Detect):
     def forward(self, feats: List[torch.Tensor]):
         out = super().forward(feats)
         out["proto"] = self.proto(feats[0]).permute(0, 2, 3, 1)  # (B, Hp, Wp, nm) view
-        out["coeffs"] = torch.cat([_flat(m(f)) for m, f in zip(self.cv4, feats)], dim=1)
+        coeff_feats = [m(f) for m, f in zip(self.cv4, feats)]
+        if self.training:
+            out["coeff_feats"] = coeff_feats
+        out["coeffs"] = torch.cat([_flat(f) for f in coeff_feats], dim=1)
         return out

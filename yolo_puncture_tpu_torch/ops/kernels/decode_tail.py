@@ -29,6 +29,20 @@ with the 128-byte swizzle applied, for fp32 a ``hi`` and a ``lo`` plane
 (``split_tf32``), made here once per set of weights so that no call prepares
 anything.  On a CPU tensor the wrapper runs ``decode_tail_reference``; on a
 CUDA tensor it launches the kernel or raises.
+
+Gradients (training): the packed parameters keep the decoder's raw tensors
+(``DecodeTailParams.raw``: the ``dec8`` / ``dec4`` conv weights, their BatchNorm
+affine and running statistics, the head's weight and bias).  Where grad mode is
+on and the activations or a raw weight require a gradient, the call goes through
+``DecodeTail``, an ``autograd.Function`` whose forward is the kernel (or the plain
+version) on the packed parameters and whose backward is the vector-Jacobian
+product of the un-packed tail (``decode_tail_unpacked``: nearest up-sample →
+3×3 conv → BN affine → SiLU → skip, twice, then the 1×1 head), recomputed in the
+backward: the function JAX's autodiff differentiates, so the raw weights get
+their gradients with no algebra on the packed form.  Running statistics are
+buffers and get none.  bf16 activations that require a gradient raise (bf16
+training is ROADMAP Queue 1, slice 10); a bf16 tail on activations that need none
+runs its forward alone, as at inference.
 """
 
 from __future__ import annotations
@@ -94,6 +108,12 @@ class DecodeTailParams:
     dtype: torch.dtype   # the activation type these were rounded for
     t8: torch.Tensor     # ``wgmma_weight_tiles(w8, dtype)``: what the kernel multiplies by
     t4: torch.Tensor     # ``wgmma_weight_tiles(w4, dtype)``; both None at widths the kernel is not compiled for
+    raw: tuple = ()      # the raw tensors, ``RAW_FIELDS`` in order, not copies: the backward differentiates them
+
+
+RAW_FIELDS = ("dec8.conv.weight", "dec8.bn.weight", "dec8.bn.bias", "dec8.bn.running_mean", "dec8.bn.running_var",
+              "dec4.conv.weight", "dec4.bn.weight", "dec4.bn.bias", "dec4.bn.running_mean", "dec4.bn.running_var",
+              "out.weight", "out.bias")
 
 
 TILE_ROW_BYTES = 128  # a weight tile's row: one chunk of input channels, 32 fp32 or 64 bf16
@@ -202,6 +222,8 @@ def pack_decode_tail_params(dec8, dec4, out, dtype: torch.dtype = torch.float32)
         dtype=dtype,
         t8=wgmma_weight_tiles(w8, dtype) if kernel_widths else None,
         t4=wgmma_weight_tiles(w4, dtype) if kernel_widths else None,
+        raw=tuple(t for c in (dec8, dec4) for t in (c.conv.weight, c.bn.weight, c.bn.bias, c.bn.running_mean,
+                                                   c.bn.running_var)) + (out.weight, out.bias),
     )
 
 
@@ -231,6 +253,50 @@ def decode_tail_reference(params: DecodeTailParams, hidden, f8p, f4p) -> torch.T
     o = torch.einsum("bhwgc,c->bhwg", y4.reshape(*y4.shape[:-1], 4, Cd), params.w_out)
     o = depth_to_space2(o, 1).reshape(N, No, 4 * H16, 4 * W16)
     return o + skip_plane(params, f4p)[:, None]
+
+
+def decode_tail_unpacked(raw, hidden, f8p, f4p) -> torch.Tensor:
+    """The un-packed tail on the raw tensors (``RAW_FIELDS``), channels last
+    (the wrapper's layouts) → stride-4 logits (N, No, H4, W4): what the JAX
+    package's ``MaskDecoder.decode_tail`` computes, and what ``DecodeTail``
+    differentiates."""
+    w8, g8, b8, m8, v8, w4, g4, b4, m4, v4, w_out, b_out = raw
+    N, No, H16, W16, Cin = hidden.shape
+
+    def stage(x, w, g, b, m, v):
+        """nearest 2× → 3×3 conv → BN on its running statistics → SiLU, NCHW."""
+        y = F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w, padding=1)
+        a = g * torch.rsqrt(v + BN_EPS)
+        return F.silu(y * a[:, None, None] + (b - m * a)[:, None, None])
+
+    x = hidden.reshape(N * No, H16, W16, Cin).permute(0, 3, 1, 2)
+    y8 = stage(x, w8, g8, b8, m8, v8)
+    y8 = (y8.reshape(N, No, *y8.shape[1:]) + f8p.permute(0, 3, 1, 2)[:, None]).flatten(0, 1)
+    y4 = stage(y8, w4, g4, b4, m4, v4)
+    y4 = y4.reshape(N, No, *y4.shape[1:]) + f4p.permute(0, 3, 1, 2)[:, None]
+    return F.conv2d(y4.flatten(0, 1), w_out, b_out).reshape(N, No, 4 * H16, 4 * W16)
+
+
+class DecodeTail(torch.autograd.Function):
+    """The tail with its gradient: forward the kernel on CUDA tensors (the plain
+    version on CPU tensors) on the packed parameters, backward the
+    vector-Jacobian product of ``decode_tail_unpacked`` on the raw tensors."""
+
+    @staticmethod
+    def forward(ctx, params, hidden, f8p, f4p, *raw):
+        ctx.save_for_backward(hidden, f8p, f4p, *raw)
+        return _tail_forward(params, hidden, f8p, f4p)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        saved = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
+            out = decode_tail_unpacked(inputs[3:], *inputs[:3])
+            diff = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, diff, d_out) if diff else ())
+        return (None, *(next(grads) if w else None for w in wanted))
 
 
 @lru_cache(maxsize=None)
@@ -279,12 +345,29 @@ def decode_tail(params: DecodeTailParams, hidden, f8p, f4p) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32 or
     bf16 activations of the type ``params`` was prepared for, contiguous,
-    Cin == 128, Cd == 64) and anything else raises."""
+    Cin == 128, Cd == 64) and anything else raises.  Where grad mode is on and
+    the activations or a raw weight require a gradient, the same forward runs
+    inside ``DecodeTail``, which gives the gradients (fp32 only; bf16 activations
+    that require a gradient raise)."""
     _check(params, hidden, f8p, f4p)
+    if hidden.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_tail runs on cpu or cuda, not {hidden.device}")
+    activations_grad = any(t.requires_grad for t in (hidden, f8p, f4p))
+    if torch.is_grad_enabled() and params.dtype != torch.float32 and activations_grad:
+        raise NotImplementedError(
+            "decode_tail's gradient is fp32 only: bf16 training is not ported yet (ROADMAP Queue 1, slice 10)"
+        )
+    if torch.is_grad_enabled() and params.dtype == torch.float32 and (
+            activations_grad or any(t.requires_grad for t in params.raw)):
+        if len(params.raw) != len(RAW_FIELDS):
+            raise ValueError("decode_tail's gradient needs the raw tensors: prepare params with pack_decode_tail_params")
+        return DecodeTail.apply(params, hidden, f8p, f4p, *params.raw)
+    return _tail_forward(params, hidden, f8p, f4p)
+
+
+def _tail_forward(params: DecodeTailParams, hidden, f8p, f4p) -> torch.Tensor:
     if hidden.device.type == "cpu":
         return decode_tail_reference(params, hidden, f8p, f4p)
-    if hidden.device.type != "cuda":
-        raise ValueError(f"decode_tail runs on cpu or cuda, not {hidden.device}")
     if hidden.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode_tail kernel takes fp32 or bf16 activations, got {hidden.dtype}")
     for name, t in (("hidden", hidden), ("f8p", f8p)):

@@ -30,6 +30,22 @@ the splits' partial results; ``memory_readout_partials`` and
 ``combine_partials`` are the plain version of that.  On a CPU tensor the wrapper
 runs ``memory_readout_reference``; on a CUDA tensor it launches the kernel or
 raises.
+
+Gradients (training): where grad mode is on and the query, keys or values
+require a gradient, the call goes through ``MemoryReadout``, an
+``autograd.Function`` whose forward is the same kernel (or plain version) and
+whose backward is the gradient of the dense readout that JAX's autodiff of
+``track/network.py memory_readout_dense`` gives, from the fp32 weights ``P``
+recomputed from the query and the keys (``readout_weights``):
+
+    dV[o] = Pᵀ·dO[o];  dP = Σ_o dO[o]·V[o]ᵀ;  δ = Σ_o rowsum(dO[o] ∘ O[o])
+    dS = P ∘ (dP − δ);  dq = dS·k·Ck^-0.5;  dk = dSᵀ·q·Ck^-0.5
+
+Rows with no valid element get zero gradients; ``valid`` gets none.  With
+``affinity_bf16`` the cotangent of the logits is rounded where JAX rounds it
+(``logit_cotangent_products``).  The products are plain ``torch.matmul``: the
+JAX package has no backward kernel either.  bf16 inputs that require a gradient
+raise (bf16 training is ROADMAP Queue 1, slice 10).
 """
 
 from __future__ import annotations
@@ -177,6 +193,63 @@ def _check(query_key, mem_keys, mem_values, mem_valid):
             raise ValueError(f"{name} is on {t.device}, the query on {query_key.device}")
 
 
+def readout_weights(query_key, mem_keys, mem_valid, affinity_bf16: bool = False) -> torch.Tensor:
+    """The readout's fp32 softmax weights P (Q, M) over the valid elements; a
+    row with no valid element is all zeros."""
+    valid = mem_valid.bool()[None, :]
+    aff = readout_logits(query_key, mem_keys, affinity_bf16).masked_fill(~valid, float("-inf"))
+    m = aff.max(dim=-1, keepdim=True).values
+    p = torch.exp(aff - torch.where(torch.isfinite(m), m, torch.zeros_like(m))) * valid
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+
+def logit_cotangent_products(dS, query_key, mem_keys, affinity_bf16: bool = False):
+    """(dq, dk) from the cotangent dS (Q, M) of the scaled logits.  Without
+    ``affinity_bf16``: dS·k·Ck^-0.5 and dSᵀ·q·Ck^-0.5 in fp32.  With it, as JAX's
+    autodiff takes the two bf16 roundings of the logits back on the CPU: dS is
+    rounded to bf16, multiplied by bf16(Ck^-0.5) in bf16, and meets the keys and
+    the query rounded to bf16 in products whose results are rounded to bf16."""
+    scale = query_key.shape[-1] ** -0.5
+    if not affinity_bf16:
+        dR = dS * scale
+        return dR @ mem_keys.float(), dR.T @ query_key.float()
+    dR = (dS.bfloat16() * torch.tensor(scale, dtype=torch.bfloat16)).float()
+    kb, qb = mem_keys.bfloat16().float(), query_key.bfloat16().float()
+    return (dR @ kb).bfloat16().float(), (dR.T @ qb).bfloat16().float()
+
+
+class MemoryReadout(torch.autograd.Function):
+    """The readout with its gradient: forward the kernel on CUDA tensors (the plain
+    version on CPU tensors), backward the dense readout's vector-Jacobian product
+    (module docstring), recomputed from the saved query, keys and values."""
+
+    @staticmethod
+    def forward(ctx, query_key, mem_keys, mem_values, mem_valid, affinity_bf16):
+        out = _readout_forward(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
+        ctx.save_for_backward(query_key, mem_keys, mem_values, mem_valid, out)
+        ctx.affinity_bf16 = affinity_bf16
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, valid, out = ctx.saved_tensors
+        P = readout_weights(q, k, valid, ctx.affinity_bf16)                    # (Q, M)
+        d_out = d_out.float()
+        dv = torch.einsum("qm,nqc->nmc", P, d_out) if ctx.needs_input_grad[2] else None
+        dq = dk = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dP = torch.einsum("nqc,nmc->qm", d_out, v.float())
+            delta = (d_out * out.float()).sum(dim=(0, 2))                       # (Q,)
+            dq, dk = logit_cotangent_products(P * (dP - delta[:, None]), q, k, ctx.affinity_bf16)
+        return dq, dk, dv, None, None
+
+
+def _readout_forward(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bool):
+    if query_key.device.type == "cpu":
+        return memory_readout_reference(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
+    return _launch(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
+
+
 def memory_readout(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bool = False) -> torch.Tensor:
     """query_key (Q, Ck); mem_keys (M, Ck); mem_values (No, M, Cv); mem_valid
     (M,) bool → readout (No, Q, Cv) in the values' type; ``affinity_bf16``
@@ -184,12 +257,23 @@ def memory_readout(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bo
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (fp32 or
     bf16, all contiguous and 16-byte aligned, Ck == 64, Cv == 128) and anything
-    else raises.  ``split_for`` says how many blocks share the memory."""
+    else raises.  ``split_for`` says how many blocks share the memory.  Where
+    grad mode is on and an input requires a gradient, the same forward runs
+    inside ``MemoryReadout``, which gives the gradients (fp32 only)."""
     _check(query_key, mem_keys, mem_values, mem_valid)
-    if query_key.device.type == "cpu":
-        return memory_readout_reference(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
-    if query_key.device.type != "cuda":
+    if query_key.device.type not in ("cpu", "cuda"):
         raise ValueError(f"memory_readout runs on cpu or cuda, not {query_key.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (query_key, mem_keys, mem_values)):
+        if any(t.dtype != torch.float32 for t in (query_key, mem_keys, mem_values)):
+            raise NotImplementedError(
+                "memory_readout's gradient is fp32 only: bf16 training is not ported yet (ROADMAP Queue 1, slice 10)"
+            )
+        return MemoryReadout.apply(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
+    return _readout_forward(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
+
+
+def _launch(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bool) -> torch.Tensor:
+    """The kernel on checked CUDA tensors; counts the launch."""
     dtype = mem_values.dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"memory_readout kernel takes fp32 or bf16, got {dtype}")

@@ -323,10 +323,16 @@ def decode_tail_subpix(decoder: MaskDecoder, hidden, f8p, f4p, dtype=torch.float
     return decode_tail_reference(decoder.tail_params(dtype), hidden.to(dtype), f8p.to(dtype), f4p)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: min(max(x, lo), hi), whose gradient splits evenly where x
+    equals a bound (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def soft_aggregate(logits, active, eps: float = 1e-7):
     """Per-object sigmoid logits (…, No, H, W) → normalised probabilities
     (…, No+1, H, W), background = Π(1 − pᵢ)."""
     p = torch.sigmoid(logits) * active[:, None, None]
-    bg = torch.prod(1.0 - p, dim=-3, keepdim=True).clamp(eps, 1.0)
+    bg = clip(torch.prod(1.0 - p, dim=-3, keepdim=True), eps, 1.0)
     stack = torch.cat([torch.log(bg / (1 - bg + eps) + eps), torch.log(p / (1 - p + eps) + eps)], -3)
     return torch.softmax(stack, dim=-3)

@@ -28,6 +28,12 @@ onto timm's keys (``blocks_{s}_{i}`` → ``blocks.{s}.{i}``), the keys the port'
 load through the same ``load_classifier_state_dict``.  ``export_u2net_state_dict``
 maps the JAX package's U²-Net variables onto the reference's torch names, which
 ``models/u2net.py`` carries.
+
+The other way: ``tracker_variables`` turns a ``PropagationNetwork`` state dict
+back into the tracker's flax variable tree, and ``write_msgpack`` encodes such a
+tree as ``flax.serialization.msgpack_serialize`` does (keys sorted, ndarrays as
+extension type 1), so a checkpoint the port trains loads in both packages
+(``export_tracker_msgpack``).
 """
 
 from __future__ import annotations
@@ -295,6 +301,96 @@ class _MsgpackReader:
         raise ValueError(f"unknown msgpack type byte 0x{b:02x}")
 
 
+class _MsgpackWriter:
+    """Encoder for the same subset, with the smallest encoding of each value, as
+    the ``msgpack`` package's ``packb(use_bin_type=True)`` chooses it."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n: int, fix: int, fix_max: int, codes) -> None:
+        """A length header: the fix form below ``fix_max``, else 8/16/32-bit lengths."""
+        if n <= fix_max:
+            self.out.append(fix | n)
+            return
+        for code, fmt in codes:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                self.out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def _ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out.append(fixed[n])
+        else:
+            self._head(n, 0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        self.out += struct.pack(">b", code) + payload
+
+    def write(self, x) -> None:
+        if x is None:
+            self.out.append(0xC0)
+        elif isinstance(x, bool):
+            self.out.append(0xC3 if x else 0xC2)
+        elif isinstance(x, int):
+            self._int(x)
+        elif isinstance(x, float):
+            self.out += b"\xcb" + struct.pack(">d", x)
+        elif isinstance(x, str):
+            raw = x.encode("utf-8")
+            self._head(len(raw), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+            self.out += raw
+        elif isinstance(x, (bytes, bytearray)):
+            self._head(len(x), 0, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+            self.out += x
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+            for v in x:
+                self.write(v)
+        elif isinstance(x, Mapping):
+            self._head(len(x), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+            for k in sorted(x):
+                self.write(str(k))
+                self.write(x[k])
+        elif isinstance(x, (np.ndarray, np.generic, torch.Tensor)):
+            arr = np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+            inner = _MsgpackWriter()
+            inner.write((tuple(int(d) for d in arr.shape), arr.dtype.name, arr.tobytes("C")))
+            self._ext(_EXT_NPSCALAR if isinstance(x, np.generic) else _EXT_NDARRAY, bytes(inner.out))
+        else:
+            raise TypeError(f"msgpack cannot encode {type(x).__name__}")
+
+    def _int(self, x: int) -> None:
+        if 0 <= x <= 0x7F or -32 <= x < 0:
+            self.out += struct.pack(">b" if x < 0 else ">B", x)
+            return
+        fmts = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if x >= 0 else \
+            ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+        for code, fmt in fmts:
+            try:
+                self.out += bytes([code]) + struct.pack(fmt, x)
+                return
+            except struct.error:
+                continue
+        raise ValueError(f"integer {x} out of msgpack's range")
+
+
+def write_msgpack(tree, dst=None) -> bytes:
+    """Encode nested dicts of arrays (numpy or torch) as a flax msgpack
+    checkpoint, the bytes ``flax.serialization.msgpack_serialize`` gives (keys
+    sorted; arrays over 2^30 bytes, which flax would chunk, are not written);
+    writes them to the path ``dst`` when given.  ``read_msgpack`` reads them
+    back."""
+    w = _MsgpackWriter()
+    w.write(tree)
+    data = bytes(w.out)
+    if dst is not None:
+        with open(dst, "wb") as f:
+            f.write(data)
+    return data
+
+
 def read_msgpack(src) -> Any:
     """Decode a flax msgpack checkpoint (a path or its bytes) into nested dicts
     of numpy arrays, as ``flax.serialization.msgpack_restore`` does."""
@@ -334,6 +430,42 @@ def export_tracker_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
                 a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
             out[tracker_flax_path_to_torch_key(path[:-1], path[-1])] = a
     return out
+
+
+_TRACKER_LEAF = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
+                 "bias": ("params", "bias")}
+_PORT_M = re.compile(r"(?:^|(?<=\.))m\.(\d+)\.")
+
+
+def tracker_variables(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A ``PropagationNetwork`` state dict → the tracker's flax variable tree
+    (``params`` / ``batch_stats`` nested dicts of fp32 numpy arrays), the inverse
+    of ``export_tracker_state_dict``: OIHW → HWIO, ``m.0`` → ``m_0``, BatchNorm's
+    ``weight`` → ``scale``."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        path, leaf = _PORT_M.sub(lambda m: f"m_{m.group(1)}.", key).rsplit(".", 1)
+        a = np.asarray(value.detach().cpu().float() if isinstance(value, torch.Tensor) else value, np.float32)
+        if leaf == "weight":
+            collection, name = ("params", "kernel") if a.ndim == 4 else ("params", "scale")
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
+        else:
+            collection, name = _TRACKER_LEAF[leaf]
+        node = out[collection]
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        node[name] = a
+    return out
+
+
+def export_tracker_msgpack(net: torch.nn.Module, dst=None) -> bytes:
+    """The tracker's weights as a flax msgpack checkpoint (``write_msgpack`` of
+    ``tracker_variables``): ``flax.serialization.from_bytes`` of the JAX package's
+    ``TrackerCore`` variables and the port's ``TrackerCore(variables=path)`` both
+    read it."""
+    return write_msgpack(tracker_variables(net.state_dict()), dst)
 
 
 def load_tracker_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
