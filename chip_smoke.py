@@ -77,7 +77,23 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      and gradients at B 2 against the CPU, then 10 timed steps at B 8 (ms a step,
      images/s, peak memory); ``train_tracker --steps 20``, whose msgpack
      ``TrackerCore`` loads and steps with, and ``yolo_cli train`` for 2 steps then
-     ``val`` on a synthetic PNG dataset in a temporary directory;
+     ``val`` on a synthetic PNG dataset in a temporary directory; the fine-tuners
+     (3t): ``ClassifierFinetuner`` on EfficientNet-B3 at 380², batch 16, on seeded
+     crops labelled by their brightness, and ``UNetFinetuner`` on U2NETP at 320²,
+     batch 4, on seeded bars and their masks, each with one step's loss and
+     gradients against the CPU (dropout 0), 20 timed steps (ms a step, images/s,
+     peak memory; the loss must fall) and ``fit_arrays``, whose recalibrated first
+     BatchNorm must equal a float64 computation; ``yolo_cli calibrate`` (3u) on the
+     checkpoint of 3s over its val images (labelled with the checkpoint's own best
+     boxes), held to the CPU's run, ``proto_decode`` launched, its sidecar read by
+     ``YOLO.load_calibration``; ``yolo_cli export`` (3v): ``msgpack`` and ``torch``
+     equal to the CPU's export, ``torch_export`` reloaded by ``torch.export.load``
+     in a process that cannot import the port and run there on the card against the
+     eager serving module; the bench's other modes (3w): ``--mode e2e`` (B 32 × 8,
+     ``proto_decode_bf16`` once a batch, its pipeline output equal to
+     ``process_frames`` of the same frames), ``--mode e2e_device``, ``--unfused``
+     (the readout and tail kernels launched) and ``--long-term`` (the dense readout:
+     ``memory_readout`` at 0, ``decode_tail`` launched), each line printed;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -1839,15 +1855,15 @@ def train_detector_phase(smi: str, imgsz: int = 640, batch: int = DET_TRAIN_B, s
         raise AssertionError("detector training gave a loss that is not finite")
 
 
-def train_apps_phase(imgsz: int = 640, device=None, tracker_argv=(), model: str = "yolo10s-seg") -> dict:
+def train_apps_phase(tmp: str, imgsz: int = 640, device=None, tracker_argv=(), model: str = "yolo10s-seg") -> dict:
     """3s: ``train_tracker --steps 20`` writes a msgpack that ``TrackerCore`` loads
     and steps with; ``yolo_cli train`` for 2 steps, then ``val``, on a synthetic
-    PNG dataset in a temporary directory under ``build/``.  Returns the kernels'
+    PNG dataset, in the directory ``tmp`` (the dataset in ``tmp/data``, the
+    checkpoints in ``tmp/run``, which 3u calibrates).  Returns the kernels'
     launches."""
     import contextlib
     import importlib.util
     import io
-    import tempfile
 
     from yolo_puncture_tpu_torch.apps import train_tracker as tt_app
     from yolo_puncture_tpu_torch.apps import yolo_cli
@@ -1856,56 +1872,442 @@ def train_apps_phase(imgsz: int = 640, device=None, tracker_argv=(), model: str 
     from yolo_puncture_tpu_torch.track import ObjectInfo, TrackerCore
     from yolo_puncture_tpu_torch.utils.png import write_png_rgb
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        out = os.path.join(tmp, "tracker.msgpack")
-        mr.memory_readout.launches = dt.decode_tail.launches = 0
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as buf:
-            iou0, iou1 = tt_app.main(TRACKER_TRAIN_ARGS + list(tracker_argv) + ["--steps", "20", "--eval_clips", "4",
-                                                                                  "--output", out], device=device)
-        lines = buf.getvalue().splitlines()
-        got = {"memory_readout": mr.memory_readout.launches, "decode_tail": dt.decode_tail.launches}
-        log(f"main path (train_tracker --steps 20): {time.perf_counter() - t:.1f} s, launches {json.dumps(got)}; "
-            f"lines {lines[0]!r} … {lines[-2]!r} {lines[-1]!r}")
-        if min(got.values()) <= 0 or lines[-1] != f"saved {out}" or not lines[0].startswith("propagation IoU before: "):
-            raise AssertionError("train_tracker did not run its kernels or print its lines")
-        targs = tt_app.parse_args(TRACKER_TRAIN_ARGS + list(tracker_argv))
-        loaded = TrackerCore(variables=out, image_size=(targs.height, targs.width), max_objects=targs.max_objects,
-                             mem_frames=4, mem_every=1, enable_long_term=False, device=device)
-        frames, masks = bar_frames(3, targs.height, targs.width, seed=9)
-        loaded.incorporate_detection(frames[0], masks[0].astype(np.int32), [ObjectInfo(id=1)])
-        prob = np.stack([loaded.step(f) for f in frames[1:]])
-        if not np.isfinite(prob).all():
-            raise AssertionError("the trained tracker's msgpack does not load and step")
-        log(f"train_tracker's msgpack ({os.path.getsize(out)} bytes) loads in TrackerCore and steps; IoU before "
-            f"{iou0:.3f}, after {iou1:.3f}")
+    out = os.path.join(tmp, "tracker.msgpack")
+    mr.memory_readout.launches = dt.decode_tail.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        iou0, iou1 = tt_app.main(TRACKER_TRAIN_ARGS + list(tracker_argv) + ["--steps", "20", "--eval_clips", "4",
+                                                                              "--output", out], device=device)
+    lines = buf.getvalue().splitlines()
+    got = {"memory_readout": mr.memory_readout.launches, "decode_tail": dt.decode_tail.launches}
+    log(f"main path (train_tracker --steps 20): {time.perf_counter() - t:.1f} s, launches {json.dumps(got)}; "
+        f"lines {lines[0]!r} … {lines[-2]!r} {lines[-1]!r}")
+    if min(got.values()) <= 0 or lines[-1] != f"saved {out}" or not lines[0].startswith("propagation IoU before: "):
+        raise AssertionError("train_tracker did not run its kernels or print its lines")
+    targs = tt_app.parse_args(TRACKER_TRAIN_ARGS + list(tracker_argv))
+    loaded = TrackerCore(variables=out, image_size=(targs.height, targs.width), max_objects=targs.max_objects,
+                         mem_frames=4, mem_every=1, enable_long_term=False, device=device)
+    frames, masks = bar_frames(3, targs.height, targs.width, seed=9)
+    loaded.incorporate_detection(frames[0], masks[0].astype(np.int32), [ObjectInfo(id=1)])
+    prob = np.stack([loaded.step(f) for f in frames[1:]])
+    if not np.isfinite(prob).all():
+        raise AssertionError("the trained tracker's msgpack does not load and step")
+    log(f"train_tracker's msgpack ({os.path.getsize(out)} bytes) loads in TrackerCore and steps; IoU before "
+        f"{iou0:.3f}, after {iou1:.3f}")
 
-        data = os.path.join(tmp, "data")
-        for split, n in (("train", 4), ("val", 2)):
-            os.makedirs(os.path.join(data, "images", split))
-            os.makedirs(os.path.join(data, "labels", split))
-            b = polygon_batch(n, 480, seed=20 + n)
-            for i in range(n):
-                write_png_rgb(os.path.join(data, "images", split, f"{i}.png"),
-                              (b["images"][i] * 255).round().astype(np.uint8))
-                with open(os.path.join(data, "labels", split, f"{i}.txt"), "w") as f:
-                    for x1, y1, x2, y2 in b["gt_bboxes"][i][b["mask_gt"][i]] / 480.0:
-                        f.write(f"0 {x1:.5f} {y1:.5f} {x2:.5f} {y1:.5f} {x2:.5f} {y2:.5f} {x1:.5f} {y2:.5f}\n")
-        run = os.path.join(tmp, "run")
-        aug = [] if importlib.util.find_spec("cv2") else ["augment=false"]
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as buf:
-            st = yolo_cli.main(["train", f"data={data}", f"model={model}", "epochs=1", f"imgsz={imgsz}", "batch=2",
-                                f"project={run}"] + aug, device=device)
-            yolo_cli.main(["val", f"data={data}", f"model={run}", f"arch={model}", f"imgsz={imgsz}"], device=device)
-        lines = buf.getvalue().splitlines()
-        log(f"yolo_cli train (2 steps, {'augmented' if not aug else 'no augmentation: no cv2'}) then val: "
-            f"{time.perf_counter() - t:.1f} s; lines {lines}")
-        if st.step != 2 or lines[0] != f"training done: 2 steps; checkpoints in {run}" \
-                or not lines[1].startswith("box  mAP50="):
-            raise AssertionError("yolo_cli train / val did not print their lines")
+    data = os.path.join(tmp, "data")
+    for split, n in (("train", 4), ("val", 2)):
+        os.makedirs(os.path.join(data, "images", split))
+        os.makedirs(os.path.join(data, "labels", split))
+        b = polygon_batch(n, 480, seed=20 + n)
+        for i in range(n):
+            write_png_rgb(os.path.join(data, "images", split, f"{i}.png"),
+                          (b["images"][i] * 255).round().astype(np.uint8))
+            with open(os.path.join(data, "labels", split, f"{i}.txt"), "w") as f:
+                for x1, y1, x2, y2 in b["gt_bboxes"][i][b["mask_gt"][i]] / 480.0:
+                    f.write(f"0 {x1:.5f} {y1:.5f} {x2:.5f} {y1:.5f} {x2:.5f} {y2:.5f} {x1:.5f} {y2:.5f}\n")
+    run = os.path.join(tmp, "run")
+    aug = [] if importlib.util.find_spec("cv2") else ["augment=false"]
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        st = yolo_cli.main(["train", f"data={data}", f"model={model}", "epochs=1", f"imgsz={imgsz}", "batch=2",
+                            f"project={run}"] + aug, device=device)
+        yolo_cli.main(["val", f"data={data}", f"model={run}", f"arch={model}", f"imgsz={imgsz}"], device=device)
+    lines = buf.getvalue().splitlines()
+    log(f"yolo_cli train (2 steps, {'augmented' if not aug else 'no augmentation: no cv2'}) then val: "
+        f"{time.perf_counter() - t:.1f} s; lines {lines}")
+    if st.step != 2 or lines[0] != f"training done: 2 steps; checkpoints in {run}" \
+            or not lines[1].startswith("box  mAP50="):
+        raise AssertionError("yolo_cli train / val did not print their lines")
     return got
+
+
+# ---------------------------------------------------------------------------
+# 3t-3w: the fine-tuners, yolo_cli calibrate and export, the bench's other modes
+# ---------------------------------------------------------------------------
+
+# the fine-tuners on the card against their CPU run, fp32 both: (loss rel, gradient rel, global) as
+# grads_match takes them.  The classifier's are the detector trainer's (a deep train-mode network,
+# BatchNorm on batch statistics, summed in another order by cuDNN and the CPU).  U2NETP's fp32 gradients
+# are farther from exact: its first stages normalise inputs whose mean is far above their spread (images
+# in [0, 1]), where flax's E[x²] − E[x]² in fp32 cancels.  scripts/finetune_fp32_deviation.py measured on
+# the CPU, fp32 against float64 at 320², batch 4: gradients up to 1.94 % of their norm, the vanishing
+# biases before a train-mode BatchNorm up to 4.1e-5 of the whole gradient, the loss 8.2e-8; the limits
+# give ten times that
+FT_LIMITS = {"classifier": (DET_STEP_LOSS_REL, DET_STEP_GRAD_REL, DET_STEP_GRAD_GLOBAL),
+             "unet": (1e-6, 0.2, 4e-4)}
+# recalibrated statistics of the first BatchNorm against float64 convolutions of the same batches: a fp32
+# convolution of 27 (B3's stem) or 27 + bias (U2NETP's first) products per output rounds each by a few 2^-24
+FT_STATS_REL = 1e-5
+FT_STEPS = 20
+
+
+def brightness_crops(n: int, size: int, seed: int):
+    """n seeded RGB crops of ``size``²: noise of ±40 around a level drawn per crop,
+    and a few dark blotches; label 1 where the level is above 115."""
+    rng = np.random.default_rng(seed)
+    level = rng.uniform(30, 200, n)
+    crops = np.clip(level[:, None, None, None] + rng.uniform(-40, 40, (n, size, size, 3)), 0, 255)
+    for c in crops:
+        y, x = rng.integers(0, size * 3 // 4, 2)
+        c[y:y + size // 4, x:x + size // 4] *= 0.3
+    return crops.astype(np.uint8), (level > 115).astype(np.int32)
+
+
+def bar_masks(n: int, size: int, seed: int):
+    """n seeded RGB images in [0, 1] of ``size``²: dark noise with one bright bar
+    each, and the bar's mask (the toy task of ``tests/test_finetune.py``)."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 0.2, (n, size, size, 3)).astype(np.float32)
+    masks = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        y, x = rng.integers(size // 8, size // 2, 2)
+        h, w = rng.integers(size // 8, size // 3, 2)
+        images[i, y:y + h, x:x + w] = 0.9
+        masks[i, y:y + h, x:x + w] = 1.0
+    return images, masks
+
+
+@torch.no_grad()
+def first_bn_statistics64(conv, batches):
+    """The batch-size-weighted mean over ``batches`` (NCHW) of the mean and biased
+    variance of ``conv``'s output, computed in float64 from the fp32 weights."""
+    import torch.nn.functional as F
+
+    mean = var = 0.0
+    n = 0
+    for x in batches:
+        y = F.conv2d(x.double(), conv.weight.double(), None if conv.bias is None else conv.bias.double(),
+                     conv.stride, conv.padding, conv.dilation, conv.groups)
+        mean = mean + x.shape[0] * y.mean(dim=(0, 2, 3))
+        var = var + x.shape[0] * y.var(dim=(0, 2, 3), unbiased=False)
+        n += x.shape[0]
+    return mean / n, var / n
+
+
+def finetune_case(smi, what, make_ft, batches, first, device, limits, steps=FT_STEPS) -> dict:
+    """One fine-tuner on the card: one step's loss and gradients against the port's
+    CPU run of the same batch, ``steps`` timed steps over ``batches`` (ms a step,
+    images/s, peak memory, the loss must fall), then ``fit_arrays`` and its first
+    BatchNorm's statistics against ``first_bn_statistics64``."""
+    import copy
+
+    ft, arrays, fit_batch = make_ft(device)
+    model = ft.net.model if hasattr(ft, "net") else ft.predictor.model
+    cpu_ft, _, _ = make_ft("cpu", copy.deepcopy(model).cpu())
+    cpu_model = cpu_ft.net.model if hasattr(cpu_ft, "net") else cpu_ft.predictor.model
+    b0 = batches[0]
+    l_gpu = ft.step(*(t.to(device) for t in b0))
+    l_cpu = cpu_ft.step(*b0)
+    l_gpu, l_cpu = float(l_gpu[0] if isinstance(l_gpu, tuple) else l_gpu), float(
+        l_cpu[0] if isinstance(l_cpu, tuple) else l_cpu)
+    loss_rel, grad_rel, grad_global = limits
+    share = grads_match(list(model.named_parameters()), list(cpu_model.parameters()), grad_rel, grad_global, what)
+    log(f"{what}: one step, batch {b0[0].shape[0]}, loss {l_gpu:.6f} on the card, {l_cpu:.6f} on the CPU; "
+        f"gradients at most {share:.3g} of their limit (rel {grad_rel}, global {grad_global})")
+    if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= loss_rel * abs(l_cpu)):
+        raise AssertionError(f"{what}: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    del cpu_ft, cpu_model
+    dev_batches = [tuple(t.to(device) for t in b) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t = time.perf_counter()
+    for i in range(steps):
+        out = ft.step(*dev_batches[i % len(dev_batches)])
+        losses.append(out[0] if isinstance(out, tuple) else out)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    first_k = np.mean(losses[:len(dev_batches)])
+    last_k = np.mean(losses[-len(dev_batches):])
+    log(f"main path ({what}): {steps} steps {ms:.2f} ms a step, {b0[0].shape[0] * 1e3 / ms:.1f} images/s, peak "
+        f"memory {peak:.2f} GiB; losses {[round(v, 4) for v in losses]} [{smi}]")
+    if not (np.isfinite(losses).all() and last_k < first_k):
+        raise AssertionError(f"{what}: the loss did not fall over {steps} steps ({first_k} → {last_k})")
+    t = time.perf_counter()
+    ft.fit_arrays(*arrays, epochs=1, batch_size=fit_batch, log_every=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    conv, bn, inputs = first(model, arrays, fit_batch, device)
+    mean64, var64 = first_bn_statistics64(conv, inputs)
+    err = max(float(((bn.running_mean.double() - mean64).abs() / var64.sqrt()).max()),
+              float(((bn.running_var.double() - var64).abs() / var64).max()))
+    log(f"{what}: fit_arrays over {len(arrays[0])} items {fit_s:.2f} s; its first BatchNorm's recalibrated "
+        f"statistics within {err:.3g} of a float64 computation (relative to the batch's std and variance; "
+        f"limit {FT_STATS_REL})")
+    if not err <= FT_STATS_REL:
+        raise AssertionError(f"{what}: recalibrated statistics {err} from the float64 computation")
+    return {"ms_per_step": ms, "images_per_s": b0[0].shape[0] * 1e3 / ms, "peak_gib": peak}
+
+
+def finetune_phase(smi, device=None, cls_size=380, cls_batch=16, unet_size=320, unet_batch=4,
+                   steps=FT_STEPS) -> dict:
+    """3t: ``ClassifierFinetuner`` on EfficientNet-B3 at ``cls_size``², batch
+    ``cls_batch``, on seeded crops labelled by their brightness, and
+    ``UNetFinetuner`` on U2NETP at ``unet_size``², batch ``unet_batch``, on seeded
+    bars and their masks; the head's dropout set to 0 so that the card and the CPU
+    take the same step (``finetune_case``)."""
+    import types
+
+    from yolo_puncture_tpu_torch.models.efficientnet import preprocess_classifier
+    from yolo_puncture_tpu_torch.tasks import ClassifierNet, UNetPredictor
+    from yolo_puncture_tpu_torch.train import ClassifierFinetuner, UNetFinetuner
+
+    dev = torch.device(device or "cuda")
+    crops, labels = brightness_crops(4 * cls_batch, cls_size, seed=30)
+
+    def make_cls(device, model=None):
+        if model is None:
+            net = ClassifierNet("efficientnet_b3", input_size=cls_size, seed=0, device=device)
+        else:
+            net = types.SimpleNamespace(model=model, device=torch.device(device), input_size=cls_size)
+        net.model.drop_rate = 0.0
+        return ClassifierFinetuner(net, lr=5e-4, seed=0), (crops, labels), cls_batch
+
+    def first_cls(model, arrays, bs, device):
+        x = torch.from_numpy(arrays[0]).to(device)
+        return model.conv_stem, model.bn1, [preprocess_classifier(x[i:i + bs], cls_size)
+                                            for i in range(0, len(x) - bs + 1, bs)]
+
+    cls_batches = [(torch.from_numpy(crops[i:i + cls_batch]), torch.from_numpy(labels[i:i + cls_batch]))
+                   for i in range(0, len(crops), cls_batch)]
+    out = {"classifier": finetune_case(smi, f"ClassifierFinetuner B3 {cls_size}^2", make_cls, cls_batches,
+                                       first_cls, dev, FT_LIMITS["classifier"], steps)}
+    images, masks = bar_masks(4 * unet_batch, unet_size, seed=31)
+
+    def make_unet(device, model=None):
+        pred = UNetPredictor("u2netp", seed=0, device=device) if model is None else types.SimpleNamespace(
+            model=model, device=torch.device(device))
+        return UNetFinetuner(pred, lr=3e-4, seed=0), (images, masks), unet_batch
+
+    def first_unet(model, arrays, bs, device):
+        x = torch.from_numpy(arrays[0]).to(device).permute(0, 3, 1, 2)
+        return (model.stage1.rebnconvin.conv_s1, model.stage1.rebnconvin.bn_s1,
+                [x[i:i + bs] for i in range(0, len(x) - bs + 1, bs)])
+
+    unet_batches = [(torch.from_numpy(images[i:i + unet_batch]), torch.from_numpy(masks[i:i + unet_batch]))
+                    for i in range(0, len(images), unet_batch)]
+    out["unet"] = finetune_case(smi, f"UNetFinetuner U2NETP {unet_size}^2", make_unet, unet_batches, first_unet,
+                                dev, FT_LIMITS["unet"], steps)
+    return out
+
+
+# calibrate on the card against its CPU run: the counts and the duplicate rates equal; a and b are
+# Newton's fit to the logits of a few hundred scores, which the card gives within a few 1e-6 of the CPU
+CAL_FIT_REL = 1e-3
+
+
+def calibrate_phase(tmp: str, smi: str, imgsz: int = 640, model: str = "yolo10s-seg", device=None) -> int:
+    """3u: ``yolo_cli calibrate`` on the checkpoints that 3s's ``yolo_cli train``
+    wrote into ``tmp/run``, over its PNG dataset's val split, on the CPU and then on
+    the card (``proto_decode`` launched): the JSON fields against the CPU's, then
+    ``YOLO.load_calibration`` of the directory reads the sidecar.  Returns the
+    kernel's launches."""
+    import contextlib
+    import io
+
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.apps import yolo_cli
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
+
+    argv = ["calibrate", f"data={os.path.join(tmp, 'data')}", f"model={os.path.join(tmp, 'run')}", f"arch={model}",
+            f"imgsz={imgsz}"]
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = yolo_cli.main(argv, device="cpu")
+    cpu_s = time.perf_counter() - t
+    proto_decode.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        got = yolo_cli.main(argv, device=device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    n = proto_decode.launches
+    lines = buf.getvalue().splitlines()
+    log(f"main path (yolo_cli calibrate, {model} {imgsz}^2, {got['n_images']} val images): proto_decode launched "
+        f"{n} times; {card_s:.2f} s on the card with the model's build, {cpu_s:.2f} s on the CPU; lines {lines}; "
+        f"card {json.dumps(got)}; CPU {json.dumps(ref)} [{smi}]")
+    if n <= 0:
+        raise AssertionError("calibrate did not launch proto_decode")
+    for k in ("n_images", "n_det", "n_tp", "duplicate_rate"):
+        if got[k] != ref[k]:
+            raise AssertionError(f"calibrate's {k}: {got[k]} on the card, {ref[k]} on the CPU")
+    for k in ("a", "b"):
+        if not abs(got[k] - ref[k]) <= CAL_FIT_REL * abs(ref[k]) + 1e-9:
+            raise AssertionError(f"calibrate's {k}: {got[k]} on the card, {ref[k]} on the CPU")
+    sidecar = os.path.join(tmp, "run", "calibration.json")
+    if not lines[0].endswith(f"→ {sidecar}") or YOLO(model, nc=1, device=device).load_calibration(
+            os.path.join(tmp, "run")) != (got["a"], got["b"]):
+        raise AssertionError("calibrate's sidecar is not where YOLO.load_calibration reads it")
+    return n
+
+
+# the exported serving graph against the eager module on the card
+EXPORT_BOX_TOL, EXPORT_SCORE_TOL = 1e-3, 1e-5
+
+
+def export_phase(tmp: str, smi: str, imgsz: int = 640, batch: int = 2, device=None) -> dict:
+    """3v: ``yolo_cli export`` of the seeded YOLOv10-S seg: ``msgpack`` and
+    ``torch`` files equal to the CPU's export; ``torch_export`` of the same
+    weights with the class biases raised by 7 (so that the seeded head scores
+    above the serving threshold 0.25), saved, reloaded by ``torch.export.load``
+    in a process where the port cannot be imported and run there on the card,
+    its outputs against the eager serving module's.  Returns the wall times."""
+    import contextlib
+    import io
+    import pickle
+    import re
+    import subprocess as sp
+
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.apps import yolo_cli
+
+    times = {}
+    for fmt in ("msgpack", "torch"):
+        files = {}
+        for where in ("cpu", device):
+            files[where] = os.path.join(tmp, f"export_{where or 'card'}_yolo10s-seg.{fmt}")
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                yolo_cli.main(["export", "model=yolo10s-seg", f"format={fmt}", f"output={files[where]}"],
+                              device=where)
+            times[fmt if where != "cpu" else f"{fmt}_cpu"] = time.perf_counter() - t
+        with open(files["cpu"], "rb") as a, open(files[device], "rb") as b:
+            if fmt == "msgpack":
+                same = a.read() == b.read()
+            else:                         # pickles of numpy arrays: the same keys, types and values
+                ref, got = pickle.load(a), pickle.load(b)
+                same = sorted(ref) == sorted(got) and all(
+                    got[k].dtype == v.dtype and np.array_equal(got[k], v) for k, v in ref.items())
+        if not same:
+            raise AssertionError(f"export format={fmt} on the card differs from the CPU's")
+    weights = os.path.join(tmp, "raised_yolo10s-seg.pt")
+    det = YOLO("yolo10s-seg", nc=1, seed=0, device=device)
+    with torch.no_grad():
+        for name, p in det.model.named_parameters():
+            if re.fullmatch(r"model\.\d+\.one2one_cv3\.\d+\.2\.bias", name):
+                p += 7.0
+    torch.save({k: v.cpu() for k, v in det.model.state_dict().items()}, weights)
+    graph = os.path.join(tmp, "serve.pt2")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        yolo_cli.main(["export", f"model={weights}", "format=torch_export", f"imgsz={imgsz}", f"batch={batch}",
+                       f"output={graph}"], device=device)
+    times["torch_export"] = time.perf_counter() - t
+    frames = np.random.default_rng(40).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    np.save(os.path.join(tmp, "frames.npy"), frames)
+    code = ("import sys\n"
+            "sys.modules['yolo_puncture_tpu_torch'] = None\n"
+            "import numpy as np, torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            f"ep = torch.export.load({graph!r})\n"
+            f"x = torch.from_numpy(np.load({os.path.join(tmp, 'frames.npy')!r})).to({str(det.device)!r})\n"
+            "with torch.no_grad():\n"
+            "    out = ep.module()(x)\n"
+            f"np.savez({os.path.join(tmp, 'served.npz')!r}, *[t.cpu().numpy() for t in out])\n")
+    t = time.perf_counter()
+    run = sp.run([sys.executable, "-c", code], cwd=tmp, capture_output=True, text=True, timeout=600,
+                 env={**os.environ, "PYTHONPATH": ""})
+    times["reload_and_run"] = time.perf_counter() - t
+    if run.returncode != 0:
+        raise AssertionError(f"the exported graph did not reload and run without the port: {run.stderr[-2000:]}")
+    served = np.load(os.path.join(tmp, "served.npz"))
+    det = YOLO(weights, nc=1, device=device)
+    with torch.no_grad():
+        boxes, scores, classes = (v.cpu().numpy() for v in
+                                  yolo_cli.serving_module(det, imgsz)(torch.from_numpy(frames).to(det.device)))
+    err = {"boxes": float(np.abs(served["arr_0"] - boxes).max()),
+           "scores": float(np.abs(served["arr_1"] - scores).max()),
+           "classes_equal": bool(np.array_equal(served["arr_2"], classes))}
+    log(f"main path (yolo_cli export, YOLOv10-S seg): msgpack and torch equal to the CPU's export; torch_export at "
+        f"({batch}, {imgsz}, {imgsz}, 3) uint8 ({os.path.getsize(graph)} bytes) reloaded and run on the card "
+        f"without the port: {int((scores > 0).sum())} detections, against the eager module {json.dumps(err)} "
+        f"(limits: boxes {EXPORT_BOX_TOL}, scores {EXPORT_SCORE_TOL}, classes equal); wall s "
+        f"{json.dumps({k: round(v, 3) for k, v in times.items()})} [{smi}]")
+    if not (err["boxes"] <= EXPORT_BOX_TOL and err["scores"] <= EXPORT_SCORE_TOL and err["classes_equal"]):
+        raise AssertionError("the reloaded serving graph disagrees with the eager module")
+    if not (scores > 0).any():
+        raise AssertionError("the raised head gave no detection above 0.25: the comparison would be of zeros")
+    return times
+
+
+E2E_BATCH, E2E_ITERS, E2E_DEVICE_ITERS = 32, 8, 10
+
+
+def bench_modes_phase(smi: str, imgsz: int = 640, batch: int = BENCH_BATCH, iters: int = BENCH_ITERS,
+                      e2e_batch: int = E2E_BATCH, e2e_iters: int = E2E_ITERS,
+                      e2e_device_iters: int = E2E_DEVICE_ITERS, device=None) -> dict:
+    """3w: the bench's ``--mode e2e`` (its pipeline output against
+    ``process_frames`` of the same frames outside the clock), ``--mode
+    e2e_device``, ``--unfused`` and ``--long-term``, each with its kernels'
+    launches, each line printed.  Returns the launches by kernel."""
+    from yolo_puncture_tpu_torch import bench as bm
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
+
+    def zero():
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        proto_decode.launches = proto_decode.launches_bf16 = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"proto_decode": proto_decode.launches, "proto_decode_bf16": proto_decode.launches_bf16,
+                "memory_readout_bf16": mr.memory_readout.launches, "decode_tail_bf16": dt.decode_tail.launches}
+
+    total = {"proto_decode_bf16": 0, "memory_readout_bf16": 0, "decode_tail_bf16": 0}
+    lines = {}
+    zero()
+    res, details = bm.run_e2e(e2e_batch, e2e_iters, imgsz, device=device)
+    got = counts()
+    n_frames = e2e_batch * e2e_iters
+    again = details["pipeline"].process_frames(list(bm.domain_frames(n_frames)), fps=30.0)
+    out = details["output"]
+    same = (np.array_equal(np.asarray(out.lens), np.asarray(again.lens))
+            and (out.start_frame, out.end_frame, out.speed_mm_s) == (again.start_frame, again.end_frame,
+                                                                     again.speed_mm_s))
+    log(f"main path (bench --mode e2e, bf16 YOLOv10-S and B3, {n_frames} frames in batches of {e2e_batch}): "
+        f"launches {json.dumps(got)}; {details['seconds']:.3f} s; key frames {out.start_frame}-{out.end_frame}, speed "
+        f"{out.speed_mm_s}, {int(np.sum(out.detected))} frames detected; the same as process_frames outside the "
+        f"bench: {same} [{smi}]")
+    if got["proto_decode_bf16"] != e2e_iters + 1 or got["proto_decode"] or not same:
+        raise AssertionError("bench --mode e2e: proto_decode_bf16 not once a batch, or its output differs from "
+                             "process_frames'")
+    lines["e2e"] = res
+    total["proto_decode_bf16"] += got["proto_decode_bf16"]
+    del details, again
+    zero()
+    res, details = bm.run_e2e_device(e2e_batch, e2e_device_iters, imgsz, device=device)
+    got = counts()
+    log(f"main path (bench --mode e2e_device, B {e2e_batch} staged once, {e2e_device_iters} chained iterations): "
+        f"launches {json.dumps(got)}; checksum {details['chk']}, {details['seconds']:.3f} s [{smi}]")
+    if got["proto_decode_bf16"] != e2e_device_iters + 1 or not np.isfinite(details["chk"]):
+        raise AssertionError("bench --mode e2e_device: proto_decode_bf16 not once an iteration, or no checksum")
+    lines["e2e_device"] = res
+    total["proto_decode_bf16"] += got["proto_decode_bf16"]
+    for name, kw in (("--unfused", {"fused": False}), ("--long-term", {"long_term": True})):
+        zero()
+        res, details = bm.run_bench(batch, iters, imgsz, track=True, device=device, **kw)
+        got = counts()
+        n_steps = iters + 1
+        log(f"main path (bench {name}, B {batch}): {n_steps} steps launched {json.dumps(got)}; steps ms "
+            f"{[round(v, 3) for v in details['steps_ms']]}, checksum {details['chk']} [{smi}]")
+        if got["proto_decode_bf16"] != n_steps or got["decode_tail_bf16"] <= 0 or not np.isfinite(details["chk"]):
+            raise AssertionError(f"bench {name}: launches {got}")
+        if (got["memory_readout_bf16"] > 0) != (name == "--unfused"):
+            raise AssertionError(f"bench {name}: memory_readout launched {got['memory_readout_bf16']} times (the "
+                                 "long-term readout is the dense one; the unfused tracker's is the kernel)")
+        lines[name] = res
+        for k in total:
+            total[k] += got[k]
+    for name, res in lines.items():
+        log(f"bench {name}:")
+        print(smi, flush=True)
+        print(json.dumps(res), flush=True)
+    return total
 
 
 def main() -> int:
@@ -2431,10 +2833,22 @@ def main() -> int:
         print(json.dumps(res), flush=True)
 
     # -- 3q-3s. training: the tracker's trainer, the detector's Trainer, their entry points ---------------
+    import tempfile
+
     for k, n in train_tracker_phase(smi).items():
         launches[k] += n
     train_detector_phase(smi, imgsz)
-    for k, n in train_apps_phase(imgsz).items():
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        for k, n in train_apps_phase(work, imgsz).items():
+            launches[k] += n
+        # -- 3t. the fine-tuners; 3u. yolo_cli calibrate on 3s's checkpoint; 3v. yolo_cli export --------------
+        finetune_phase(smi)
+        launches["proto_decode"] += calibrate_phase(work, smi, imgsz)
+        export_phase(work, smi, imgsz)
+
+    # -- 3w. the bench's other modes: e2e, e2e_device, unfused, long-term ------------------------------------
+    for k, n in bench_modes_phase(smi, imgsz).items():
         launches[k] += n
 
     # -- 4. the same calls on the CPU ------------------------------------------------------

@@ -309,3 +309,90 @@ def test_bench_runs_on_the_cpu_at_a_toy_size(monkeypatch):
     assert res["median_step_ms"] == float(np.median(details["steps_ms"]))
     assert set(res) == {"metric", "value", "unit", "vs_baseline", "median_step_ms"}
     json.dumps(res)
+
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """Counts of the tracker's calls into the readout and decode-tail wrappers
+    (on the CPU the wrappers run their plain versions; on the card, the kernels)."""
+    from yolo_puncture_tpu_torch.track import core as tcore
+    from yolo_puncture_tpu_torch.track import network as tnet
+
+    calls = {"memory_readout": 0, "decode_tail": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(tcore, "memory_readout_kernel", spy("memory_readout", tcore.memory_readout_kernel))
+    monkeypatch.setattr(tnet, "decode_tail", spy("decode_tail", tnet.decode_tail))
+    return calls
+
+
+@pytest.mark.parametrize("fused,long_term", [(False, False), (True, True)], ids=["unfused", "long_term"])
+def test_bench_modes_run_on_the_cpu_at_a_toy_size(monkeypatch, kernel_calls, fused, long_term):
+    """``--unfused`` (the detector's step, then ``build_bench_tracker``'s with its
+    defaults) and ``--long-term`` (the fused step, long-term memory on: the dense
+    readout, no call into the readout wrapper, the tail still called) at a toy size."""
+    monkeypatch.setattr(bench, "FRAME_HW", FRAME_HW)
+    monkeypatch.setattr(bench, "MIN_SIDE", MIN_SIDE)
+    model, (mem, fn) = bench.bench_models(64, True, "cpu", fused=fused, long_term=long_term)
+    assert (fn.core.enable_long_term, fn.core.max_objects, fn.core.affinity_bf16) == (
+        (True, 2, True) if long_term else (False, 4, False))
+    res, details = bench.run_bench(batch=4, iters=2, imgsz=64, track=True, device="cpu", fused=fused,
+                                   long_term=long_term)
+    assert res["metric"] == "frames/sec/chip at 640x640 (YOLOv10-S seg+DEVA)" and np.isfinite(details["chk"])
+    assert len(details["steps_ms"]) == 2 and res["value"] > 0
+    assert kernel_calls["decode_tail"] > 0
+    assert (kernel_calls["memory_readout"] == 0) == long_term
+
+
+def _jax_domain_frames(n, per_frame):
+    """``bench.py``'s config-5 frames as ``_main_e2e`` / ``_main_e2e_device`` draw them."""
+    rng = np.random.default_rng(0)
+    if per_frame:
+        base = rng.integers(60, 120, size=(n, 720, 1280, 3), dtype=np.uint8)
+        for i in range(n):
+            x = 100 + (i * 3) % 900
+            base[i, 200:520, x:x + 40] = 235
+        return base
+    base = rng.integers(60, 120, size=(720, 1280, 3), dtype=np.uint8)
+    frames = []
+    for i in range(n):
+        f = base.copy()
+        x = 100 + (i * 3) % 900
+        f[200:520, x:x + 40] = 235
+        frames.append(f)
+    return np.stack(frames)
+
+
+@pytest.mark.parametrize("per_frame", [False, True])
+def test_domain_frames_are_bench_pys(per_frame):
+    assert np.array_equal(bench.domain_frames(3, one_texture=not per_frame), _jax_domain_frames(3, per_frame))
+
+
+def test_e2e_modes_run_on_the_cpu_at_a_toy_size(monkeypatch):
+    """``--mode e2e`` and ``--mode e2e_device`` at a toy size (96×160 frames,
+    imgsz 64, B3 on 64² crops): ``bench.py``'s lines, and the bench's pipeline
+    output equal to ``process_frames`` of the same frames outside the clock."""
+    monkeypatch.setattr(bench, "FRAME_HW", FRAME_HW)
+    monkeypatch.setattr(bench, "CROP", 64)
+    res, details = bench.run_e2e(batch=2, iters=2, imgsz=64, device="cpu")
+    assert res["metric"] == "E2E frames/sec/chip (VideoSpeedPipeline det+cls+analytics, config 5)"
+    assert set(res) == {"metric", "value", "unit", "vs_baseline"} and res["value"] > 0
+    out, again = details["output"], details["pipeline"].process_frames(list(bench.domain_frames(4)), fps=30.0)
+    assert len(out.lens) == 4 and list(out.lens) == list(again.lens)
+    assert (out.start_frame, out.end_frame, out.speed_mm_s) == (again.start_frame, again.end_frame, again.speed_mm_s)
+    assert details["pipeline"].detector.model.dtype == torch.bfloat16
+    res, details = bench.run_e2e_device(batch=2, iters=2, imgsz=64, device="cpu")
+    assert res["metric"] == "config-5 device-stage frames/sec/chip (VideoSpeedPipeline det+cls, frames pre-staged)"
+    assert res["value"] > 0 and np.isfinite(details["chk"])
+
+
+@pytest.mark.parametrize("argv", [["--unfused", "--shared"], ["--unfused", "--long-term"], ["--unfused", "--no-track"],
+                                  ["--mode", "e2e", "--long-term"], ["--mode", "e2e_device", "--unfused"]])
+def test_bench_refuses_modes_that_do_not_combine(argv):
+    with pytest.raises(SystemExit):
+        bench.main(argv)

@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version, and
 ``YOLO.predict``, ``TrackerCore`` and the speed pipeline's device step on ``cuda``
 against the same code on the CPU; the backward of the tracker's two kernels
-(``MemoryReadout``, ``DecodeTail``) against their CPU path and float64.
+(``MemoryReadout``, ``DecodeTail``) against their CPU path and float64; the
+fine-tuners, ``yolo_cli calibrate`` / ``export`` and the bench's other modes
+(``chip_smoke.py`` phases 3t–3w at reduced sizes).
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -30,6 +32,8 @@ from chip_smoke import (
     TAIL_GRAD_CASES,
     BarDetector,
     bar_frames,
+    bench_modes_phase,
+    calibrate_phase,
     check_decode_tail_case,
     check_proto_decode_case,
     check_pipeline_step,
@@ -38,11 +42,14 @@ from chip_smoke import (
     check_readout_fp64_case,
     check_readout_grad_case,
     check_tail_grad_case,
+    export_phase,
+    finetune_phase,
     needle_clip,
     needle_network,
     pipeline_conf,
     pipeline_step_numpy,
     run_track_app,
+    train_apps_phase,
 )
 from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
@@ -337,3 +344,34 @@ def test_kernels_keep_the_autograd_graph_on_cuda(cuda):
     assert decode_tail(params, h.requires_grad_(), f8, f4).grad_fn is not None
     net.decoder.out.weight.requires_grad_(True)
     assert decode_tail(net.decoder.tail_params(torch.float32), h.detach(), f8, f4).grad_fn is not None
+
+
+@pytest.mark.gpu
+def test_finetuners_on_the_card_match_the_cpu(cuda):
+    """3t at reduced sizes (B3 at 96², batch 4; U2NETP at 64², batch 2): one step
+    against the CPU, 20 steps whose loss falls, ``fit_arrays``' statistics against
+    float64."""
+    out = finetune_phase("gpu test", device=cuda, cls_size=96, cls_batch=4, unet_size=64, unet_batch=2)
+    assert out["classifier"]["ms_per_step"] > 0 and out["unet"]["peak_gib"] > 0
+
+
+@pytest.mark.gpu
+def test_calibrate_and_export_on_the_card(cuda, tmp_path):
+    """3s-3v at reduced sizes: ``yolo_cli train`` (YOLOv8-n at 128²) and its
+    checkpoint through ``calibrate`` on the card against the CPU (``proto_decode``
+    launched), then ``export`` of YOLOv10-S at 128², the serving graph reloaded
+    without the port."""
+    train_apps_phase(str(tmp_path), imgsz=128, device=cuda, model="yolov8n-seg",
+                     tracker_argv=["--height", "64", "--width", "64", "--batch", "2"])
+    assert calibrate_phase(str(tmp_path), "gpu test", imgsz=128, model="yolov8n-seg", device=cuda) > 0
+    assert export_phase(str(tmp_path), "gpu test", imgsz=128, batch=2, device=cuda)["torch_export"] > 0
+
+
+@pytest.mark.gpu
+def test_bench_modes_on_the_card(cuda):
+    """3w at B 8: ``--mode e2e`` (``proto_decode_bf16`` once a batch, the same output
+    as ``process_frames``), ``--mode e2e_device``, ``--unfused`` (both tracker
+    kernels) and ``--long-term`` (no readout kernel)."""
+    got = bench_modes_phase("gpu test", 640, batch=8, iters=2, e2e_batch=8, e2e_iters=2, e2e_device_iters=2,
+                            device=cuda)
+    assert got["proto_decode_bf16"] > 0 and got["memory_readout_bf16"] > 0 and got["decode_tail_bf16"] > 0

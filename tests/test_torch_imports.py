@@ -55,7 +55,7 @@ def test_walk_finds_every_layer():
               "utils.png", "utils.plotting", "native", "apps", "apps.track_video", "apps.auto_speed_calc",
               "apps.evaluate_speed", "apps.speed_freq", "apps.serve", "apps.app", "apps.webui", "apps.yolo_cli",
               "models.u2net", "tasks.unet", "track.train", "apps.train_tracker", "train", "train.assigner",
-              "train.losses", "train.trainer", "train.data", "train.metrics"):
+              "train.losses", "train.trainer", "train.data", "train.metrics", "train.finetune"):
         assert f"yolo_puncture_tpu_torch.{m}" in names
 
 
@@ -238,9 +238,10 @@ def test_server_and_web_ui_answer_a_png_without_cv2_pil_or_gradio():
 def test_training_runs_without_cv2(tmp_path):
     """With jax, flax, yolo_puncture_tpu, apps and cv2 out of reach: the tracker's
     trainer takes an Adam step and writes its flax msgpack (``train_tracker``),
-    and the detector's ``Trainer`` takes an SGD step on a batch that
+    the detector's ``Trainer`` takes an SGD step on a batch that
     ``SegDataset.load`` reads from PNG files (the letterbox resize and the
-    polygon fill without cv2)."""
+    polygon fill without cv2), and the classifier's fine-tuner crops the same
+    PNG files (``ClassifierFinetuner.crops_from_dataset``)."""
     code = (
         "import importlib, os, sys\n"
         f"for m in {FORBIDDEN + ('cv2',)!r}: sys.modules[m] = None\n"
@@ -265,6 +266,9 @@ def test_training_runs_without_cv2(tmp_path):
         "tr = Trainer(YOLO('yolov8n-seg', nc=1, device='cpu').model, nc=1, imgsz=64, warmup_steps=0)\n"
         "state, m = tr.train_step(tr.init_state(), batch)\n"
         "assert state.step == 1 and np.isfinite(float(m['total']))\n"
+        "from yolo_puncture_tpu_torch.train import ClassifierFinetuner\n"
+        "crops, labels = ClassifierFinetuner.crops_from_dataset(out, 'train', 24)\n"
+        "assert crops.shape == (2, 24, 24, 3) and labels.tolist() == [0, 0] and crops[1].max() == 60\n"
         "leaked = sorted(k for k in sys.modules if k.split('.')[0] == 'cv2' and sys.modules[k] is not None)\n"
         "assert not leaked, leaked\n"
         "print('trained without cv2')\n"

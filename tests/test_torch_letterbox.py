@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from tests.torch_parity import torch_single_thread  # noqa: F401  (autouse fixture)
-from yolo_puncture_tpu_torch.ops import letterbox as plb
 
-# the JAX package's ops/__init__ re-exports the function under the module's name
+# both packages' ops/__init__ re-export the function under the module's name
+plb = importlib.import_module("yolo_puncture_tpu_torch.ops.letterbox")
 jlb = importlib.import_module("yolo_puncture_tpu.ops.letterbox")
 
 

@@ -148,8 +148,14 @@ def test_yolo_cli_val_of_a_flax_checkpoint_prints_what_the_jax_cli_prints(tmp_pa
 
 
 @pytest.mark.parametrize("cmd", ["calibrate", "export"])
-def test_later_commands_raise(cmd):
+def test_later_commands_raise(cmd, tmp_path):
+    """Both commands are ported; what they cannot do raises: ``calibrate`` of a
+    model that is not a checkpoint, ``export`` to a format of the JAX CLI."""
     from yolo_puncture_tpu_torch.apps import yolo_cli
 
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        yolo_cli.main([cmd, "model=yolov8n-seg"], device="cpu")
+    if cmd == "calibrate":
+        with pytest.raises(FileNotFoundError):
+            yolo_cli.main([cmd, f"model={tmp_path / 'step_1.pt'}", "arch=yolov8n-seg"], device="cpu")
+    else:
+        with pytest.raises(SystemExit, match="JAX package's CLI"):
+            yolo_cli.main([cmd, "model=yolov8n-seg", "format=stablehlo"], device="cpu")

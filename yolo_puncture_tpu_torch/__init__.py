@@ -13,6 +13,9 @@ Mirrors the JAX package's layout so each counterpart is easy to find:
              app, webui, yolo_cli
   utils/     weight bridge (JAX variables, ultralytics .pt), device choice, PNG writer and reader, plots
 
+The top level exports ``get_config``, ``create_model``, ``register_model``,
+``list_models`` and ``YOLO``; importing the package registers every model name.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.  The
 package imports torch, numpy and scipy only (cv2, PIL and matplotlib where a
 file must be decoded or a plot drawn): never jax, flax or yolo_puncture_tpu.
@@ -20,4 +23,7 @@ file must be decoded or a plot drawn): never jax, flax or yolo_puncture_tpu.
 
 __version__ = "0.1.0"
 
+from yolo_puncture_tpu_torch.utils.config import get_config  # noqa: E402,F401
+from yolo_puncture_tpu_torch.registry import create_model, list_models, register_model  # noqa: E402,F401
+from yolo_puncture_tpu_torch import models as _models  # noqa: E402,F401  (fills the registry)
 from yolo_puncture_tpu_torch.predict.predictor import YOLO  # noqa: E402,F401

@@ -1,11 +1,13 @@
-"""Frames per second of the fused seg+track step on one card: the port's
-counterpart of the repository's ``bench.py`` in its default mode
-(``BENCH_MODE=stream``, ``BENCH_FUSED=1``).
+"""Frames per second on one card: the port's counterpart of the repository's
+``bench.py``, in its modes.
 
     python -m yolo_puncture_tpu_torch.bench [--batch 128] [--iters 10] [--imgsz 640]
-                                            [--no-track | --shared] [--trace DIR]
+                                            [--no-track | --shared] [--long-term] [--unfused] [--trace DIR]
+    python -m yolo_puncture_tpu_torch.bench --mode e2e [--batch 32] [--iters 8]
+    python -m yolo_puncture_tpu_torch.bench --mode e2e_device [--batch 32] [--iters 10]
 
-One step takes a batch of B seeded BGR frames of 720×1280
+The default mode (``BENCH_MODE=stream``, ``BENCH_FUSED=1``) times the fused
+seg+track step.  One step takes a batch of B seeded BGR frames of 720×1280
 (``numpy.random.default_rng(0)``), uploaded once before the clock starts, and runs:
 
   * the detector: YOLOv10-S seg, one class, seeded random weights, in bf16 (the
@@ -32,21 +34,42 @@ One step takes a batch of B seeded BGR frames of 720×1280
   * a checksum folded from the step's boxes, scores, valid flags, masks and ids,
     carried into the next step, so that every step depends on the one before.
 
+``--long-term`` (``BENCH_LT=1``) builds that tracker with long-term memory on:
+its readout is then the dense PyTorch one, which returns the attention usage
+(the ``memory_readout`` kernel does not run), and the ``decode_tail`` kernel
+still does.  ``--unfused`` (``BENCH_FUSED=0``) times the detector's step
+without a tracker, then ``track.build_bench_tracker``'s step with the JAX
+package's defaults (bf16, 4 slots, ids at stride 4 upsampled, no
+``affinity_bf16``) on the same frames, as two calls a batch.
+
 One warm-up step, then ``--iters`` timed steps on the host clock, and one fetch
-of the checksum at the end; nothing is copied to the host inside the timed loop,
-and a step waits for the device once (``propagate_frames`` reads whether a slot
-is active).
+of the checksum at the end (with ``--unfused`` also of the last id map); nothing
+is copied to the host inside the timed loop, and a step waits for the device once
+(``propagate_frames`` reads whether a slot is active).
 CUDA events around each step give the median step time.  The line before the last
 is the card's ``nvidia-smi --query-gpu=name,power.limit``; the last is
 ``bench.py``'s JSON line plus ``median_step_ms``.  ``--trace DIR`` traces one more
 step with ``torch.profiler`` (``utils/profiling.py device_trace``).
 
+``--mode e2e`` (``BENCH_MODE=e2e``, BASELINE config 5) runs
+``VideoSpeedPipeline`` with the bf16 YOLOv10-S seg and a bf16 EfficientNet-B3
+(``device_batch`` = the batch, 32 by default) over the JAX package's domain
+frames (``domain_frames``: a textured base from ``default_rng(0)`` and a
+40-pixel bright bar moving across it), one batch to warm up, then
+``process_frames`` over batch × iters frames on the host clock, the host
+analytics included.  ``--mode e2e_device`` (``BENCH_MODE=e2e_device``) times
+the pipeline's device step (``VideoSpeedPipeline._step``: letterbox, detector,
+best box, mask decode, crops, classifier) on one batch of those frames staged
+on the card once, each iteration's ``conf`` made to depend on the previous
+iteration's checksum so that the iterations form one chain, with one fetch at
+the end.  Both print ``bench.py``'s line for their mode.
+
 What of ``bench.py`` is not here, and why:
-  * its other modes (``BENCH_MODE=e2e``, ``e2e_device``) and the unfused loop
-    (``BENCH_FUSED=0``, ``build_bench_tracker`` beside a detector-only step);
   * the switches that select modules the port has not ported: int8 convolutions
-    (``BENCH_INT8_DET``, ``BENCH_INT8_STATIC``), the int8 memory ring
-    (``BENCH_INT8``), long-term memory (``BENCH_LT``);
+    (``BENCH_INT8_DET``, ``BENCH_INT8_STATIC``) and the int8 memory ring
+    (``BENCH_INT8``), which wait for ROADMAP item 12a;
+  * ``bench.py``'s fallback to the detector alone when the tracker cannot be
+    built: here a failure raises and the run exits non-zero;
   * the switches that select what the port's step is by construction: the
     readout kernel (``BENCH_FLASH``), the fused tail kernel
     (``BENCH_PALLAS_TAIL``), the sub-pixel tail (``BENCH_SUBPIX``), and the
@@ -86,21 +109,27 @@ CONF = 0.25
 WINDOW = 4
 
 
-def bench_models(imgsz: int = 640, track: bool = True, device=None, shared: bool = False):
+def bench_models(imgsz: int = 640, track: bool = True, device=None, shared: bool = False, fused: bool = True,
+                 long_term: bool = False):
     """The bench's detector (YOLOv10-S seg, bf16, seeded) and tracker
-    (``build_bench_tracker``'s (initial memory, step) in bf16 with two slots,
-    with ``shared`` the one that reads the detector's pyramid, or None without
-    ``track``), on ``device`` (the card unless it says "cpu")."""
+    (``build_bench_tracker``'s (initial memory, step) in bf16, or None without
+    ``track``), on ``device`` (the card unless it says "cpu").  The fused step's
+    tracker has two slots, ids at full resolution and ``affinity_bf16``; with
+    ``shared`` it reads the detector's pyramid, with ``long_term`` it keeps
+    long-term memory.  Unfused, the tracker is ``build_bench_tracker``'s with
+    its defaults, as ``bench.py``'s ``BENCH_FUSED=0`` builds it."""
     dev = resolve_device(device)
     model = YOLOModel("v10", "s", nc=1, task="segment", dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to(dev).eval()
     tracker = None
-    if track:
+    if track and fused:
         tracker = build_bench_tracker(imgsz, dtype=torch.bfloat16, min_side=MIN_SIDE, window=WINDOW,
                                       frame_hw=FRAME_HW, device=dev, max_objects=2, full_res_ids=True,
-                                      affinity_bf16=True,
+                                      affinity_bf16=True, enable_long_term=long_term,
                                       pyramid_channels=pyramid_channels_for("v10", "s") if shared else None)
+    elif track:
+        tracker = build_bench_tracker(imgsz, dtype=torch.bfloat16, min_side=MIN_SIDE, frame_hw=FRAME_HW, device=dev)
     return model, tracker
 
 
@@ -132,6 +161,20 @@ def make_fused_step(model, track_fn, imgsz: int = 640):
     return step
 
 
+def make_unfused_step(model, track_fn, imgsz: int = 640):
+    """``bench.py``'s ``BENCH_FUSED=0`` loop body as one call: the detector's
+    step (``make_fused_step`` without a tracker), then ``track_fn`` on the same
+    frames; the tracker's ids stay out of the checksum, as there."""
+    det_step = make_fused_step(model, None, imgsz)
+
+    def step(memory, frames_u8, conf, chk):
+        out, _ = det_step(None, frames_u8, conf, chk)
+        memory, out["ids"] = track_fn(memory, frames_u8)
+        return out, memory
+
+    return step
+
+
 def seeded_frames(batch: int) -> np.ndarray:
     """``bench.py``'s frames: uint8 (batch, *FRAME_HW, 3) from ``default_rng(0)``."""
     rng = np.random.default_rng(0)
@@ -139,14 +182,17 @@ def seeded_frames(batch: int) -> np.ndarray:
 
 
 def run_bench(batch: int = 128, iters: int = 10, imgsz: int = 640, track: bool = True,
-              trace_dir: Optional[str] = None, device=None, shared: bool = False) -> Tuple[Dict, Dict]:
-    """Build, warm up and time the fused step.  Returns (``bench.py``'s result
-    dict plus ``median_step_ms``, details: step times in ms, the checksum, the
-    device, the seconds of the timed loop)."""
+              trace_dir: Optional[str] = None, device=None, shared: bool = False, fused: bool = True,
+              long_term: bool = False) -> Tuple[Dict, Dict]:
+    """Build, warm up and time the fused step (or, with ``fused=False``, the
+    detector's and the tracker's steps one after the other).  Returns
+    (``bench.py``'s result dict plus ``median_step_ms``, details: step times in
+    ms, the checksum, the device, the seconds of the timed loop)."""
     dev = resolve_device(device)
-    model, tracker = bench_models(imgsz, track, dev, shared)
+    model, tracker = bench_models(imgsz, track, dev, shared, fused, long_term)
     mem, track_fn = tracker if tracker is not None else (None, None)
-    step = make_fused_step(model, track_fn, imgsz)
+    step = make_fused_step(model, track_fn, imgsz) if fused or track_fn is None else make_unfused_step(
+        model, track_fn, imgsz)
     frames = torch.from_numpy(seeded_frames(batch)).to(dev)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -167,6 +213,8 @@ def run_bench(batch: int = 128, iters: int = 10, imgsz: int = 640, track: bool =
     if cuda:
         marks[iters].record()
     chk_value = float(chk)                     # one fetch forces the whole chain
+    if not fused and out["ids"] is not None:
+        out["ids"][0, 0, :4].cpu()             # and the tracker's, which the checksum leaves out
     dt = time.perf_counter() - t0
     if cuda:
         steps_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(iters)]
@@ -187,22 +235,125 @@ def run_bench(batch: int = 128, iters: int = 10, imgsz: int = 640, track: bool =
     return result, {"steps_ms": steps_ms, "chk": chk_value, "device": str(dev), "seconds": dt}
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 5: the video speed pipeline (BENCH_MODE=e2e, e2e_device)
+# ---------------------------------------------------------------------------
+
+DETECTOR, CLASSIFIER, CROP = "yolo10s-seg", "efficientnet_b3", 380
+
+
+def domain_frames(n: int, one_texture: bool = True) -> np.ndarray:
+    """``bench.py``'s frames for config 5: a textured base (``integers(60, 120)``
+    from ``default_rng(0)``; one for all frames in ``e2e``, one a frame in
+    ``e2e_device``) and, on frame i, a bright bar of 40 pixels at
+    x = 100 + 3i mod 900 over rows 200–520 (random noise would make the random
+    detector draw speckle masks whose host pass is far slower than real footage,
+    one compact instance a frame).  uint8 (n, *FRAME_HW, 3)."""
+    rng = np.random.default_rng(0)
+    if one_texture:
+        frames = np.repeat(rng.integers(60, 120, size=(1, *FRAME_HW, 3), dtype=np.uint8), n, axis=0)
+    else:
+        frames = rng.integers(60, 120, size=(n, *FRAME_HW, 3), dtype=np.uint8)
+    for i in range(n):
+        x = 100 + (i * 3) % 900
+        frames[i, 200:520, x:x + 40] = 235
+    return frames
+
+
+def e2e_pipeline(batch: int, imgsz: int = 640, device=None):
+    """The pipeline of config 5: bf16 YOLOv10-S seg (one class, seeded) and a bf16
+    EfficientNet-B3 (seeded) with ``device_batch=batch``."""
+    from yolo_puncture_tpu_torch.pipeline import VideoSpeedPipeline
+    from yolo_puncture_tpu_torch.predict import YOLO
+    from yolo_puncture_tpu_torch.tasks import ClassifierNet
+
+    det = YOLO(DETECTOR, nc=1, dtype=torch.bfloat16, device=device)
+    cls_net = ClassifierNet(CLASSIFIER, input_size=CROP, dtype=torch.bfloat16, device=device)
+    return VideoSpeedPipeline(det, cls_net, device_batch=batch, imgsz=imgsz, crop_size=CROP)
+
+
+def run_e2e(batch: int = 32, iters: int = 8, imgsz: int = 640, device=None) -> Tuple[Dict, Dict]:
+    """``BENCH_MODE=e2e``: ``process_frames`` over batch × iters domain frames
+    after one warm-up batch.  Returns (``bench.py``'s result dict, details: the
+    pipeline, its output, the seconds, the device)."""
+    pipe = e2e_pipeline(batch, imgsz, device)
+    frames = list(domain_frames(batch * iters))
+    pipe.process_frames(frames[:batch], fps=30.0)                 # warm-up
+    t0 = time.perf_counter()
+    out = pipe.process_frames(frames, fps=30.0)
+    dt = time.perf_counter() - t0
+    if len(out.lens) != len(frames):
+        raise RuntimeError(f"the pipeline returned {len(out.lens)} lengths for {len(frames)} frames")
+    fps = len(frames) / dt
+    result = {"metric": "E2E frames/sec/chip (VideoSpeedPipeline det+cls+analytics, config 5)",
+              "value": round(fps, 1), "unit": "frames/sec", "vs_baseline": round(fps / 500.0, 3)}
+    return result, {"pipeline": pipe, "output": out, "seconds": dt, "device": str(pipe.detector.device)}
+
+
+def run_e2e_device(batch: int = 32, iters: int = 10, imgsz: int = 640, device=None) -> Tuple[Dict, Dict]:
+    """``BENCH_MODE=e2e_device``: the pipeline's device step on ``batch`` domain
+    frames staged on the device once, ``iters`` iterations chained through
+    ``conf`` = 0.25 + 0 · (the previous checksum), one fetch at the end.
+    Returns (``bench.py``'s result dict, details: the checksum, the seconds, the
+    device)."""
+    pipe = e2e_pipeline(batch, imgsz, device)
+    dev = pipe.detector.device
+    frames = torch.from_numpy(domain_frames(batch, one_texture=False)).to(dev)
+
+    def one(chk):
+        out, _, _ = pipe._step(frames, 0.25 + 0.0 * chk)
+        return (chk + out["box"].float().sum() + out["conf"].float().sum() + out["cls_prob"].float().sum()
+                + out["mask_lb"][:, ::37, ::37].to(torch.int32).sum())
+
+    float(one(torch.zeros((), device=dev)))                      # warm-up, forced
+    t0 = time.perf_counter()
+    chk = torch.zeros((), device=dev)
+    for _ in range(iters):
+        chk = one(chk)
+    chk_value = float(chk)
+    dt = time.perf_counter() - t0
+    fps = batch * iters / dt
+    result = {"metric": "config-5 device-stage frames/sec/chip (VideoSpeedPipeline det+cls, frames pre-staged)",
+              "value": round(fps, 1), "unit": "frames/sec", "vs_baseline": round(fps / 500.0, 3)}
+    return result, {"chk": chk_value, "seconds": dt, "device": str(dev)}
+
+
+MODE_DEFAULTS = {"stream": (128, 10), "e2e": (32, 8), "e2e_device": (32, 10)}    # (batch, iters), bench.py's
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--mode", choices=sorted(MODE_DEFAULTS), default="stream", help="bench.py's BENCH_MODE")
+    ap.add_argument("--batch", type=int, default=None, help="128 for stream, 32 for the e2e modes")
+    ap.add_argument("--iters", type=int, default=None, help="10, or 8 for e2e")
     ap.add_argument("--imgsz", type=int, default=640)
-    mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--no-track", dest="track", action="store_false", help="the detector alone")
-    mode.add_argument("--shared", action="store_true",
-                      help="the tracker reads the detector's pyramid (bench.py's BENCH_SHARED=1)")
+    track = ap.add_mutually_exclusive_group()
+    track.add_argument("--no-track", dest="track", action="store_false", help="the detector alone")
+    track.add_argument("--shared", action="store_true",
+                       help="the tracker reads the detector's pyramid (bench.py's BENCH_SHARED=1)")
+    ap.add_argument("--long-term", action="store_true", help="long-term memory on (bench.py's BENCH_LT=1)")
+    ap.add_argument("--unfused", action="store_true",
+                    help="the detector's step, then build_bench_tracker's (bench.py's BENCH_FUSED=0)")
     ap.add_argument("--trace", default=None, help="directory for a torch.profiler trace of one more step")
     args = ap.parse_args(argv)
+    if args.unfused and (args.shared or args.long_term or not args.track):
+        ap.error("--unfused runs build_bench_tracker's own tracker: no --shared, --long-term or --no-track")
+    if args.mode != "stream" and (args.unfused or args.shared or args.long_term or not args.track or args.trace):
+        ap.error(f"--mode {args.mode} takes only --batch, --iters and --imgsz")
+    batch, iters = (v if v is not None else d for v, d in zip((args.batch, args.iters), MODE_DEFAULTS[args.mode]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result, details = run_bench(args.batch, args.iters, args.imgsz, args.track, args.trace, shared=args.shared)
-    print(f"# steps ms {[round(t, 3) for t in details['steps_ms']]}, checksum {details['chk']}, "
-          f"{details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
+    if args.mode == "e2e":
+        result, details = run_e2e(batch, iters, args.imgsz)
+        print(f"# {details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
+    elif args.mode == "e2e_device":
+        result, details = run_e2e_device(batch, iters, args.imgsz)
+        print(f"# checksum {details['chk']}, {details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
+    else:
+        result, details = run_bench(batch, iters, args.imgsz, args.track, args.trace, shared=args.shared,
+                                    fused=not args.unfused, long_term=args.long_term)
+        print(f"# steps ms {[round(t, 3) for t in details['steps_ms']]}, checksum {details['chk']}, "
+              f"{details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     print(json.dumps(result), flush=True)

@@ -9,6 +9,9 @@ se.conv_reduce|se.conv_expand|conv_pwl|bn1..3``, ``conv_head``, ``bn2``,
 variables across.  As there: BatchNorm eps 1e-3, symmetric ``k // 2`` padding
 (also at stride 2), and a squeeze-excite width of a quarter of the block's input.
 
+In ``train()`` BatchNorm is flax's (``nn/common.py BatchNorm2d``) with the JAX
+package's momentum 0.99, and the head applies the variant's dropout.
+
 ``EfficientNet.forward`` takes NCHW images (timm's layout) and returns logits;
 ``preprocess_classifier`` turns RGB uint8 NHWC crops into that input.  A model
 built with ``dtype=torch.bfloat16`` computes as the JAX package's
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_puncture_tpu_torch.nn.common import to_compute_dtype
+from yolo_puncture_tpu_torch.nn.common import BatchNorm2d, to_compute_dtype, torch_batch_statistics
 from yolo_puncture_tpu_torch.ops.masks import _linear_weight_mat
 from yolo_puncture_tpu_torch.registry import register_model
 
@@ -54,6 +57,7 @@ _CFG = {
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.01          # flax's momentum 0.99: running ← 0.99 · running + 0.01 · batch
 
 
 def round_filters(c: int, width_mult: float, divisor: int = 8) -> int:
@@ -72,8 +76,8 @@ def _conv(cin: int, cout: int, k: int, s: int = 1, groups: int = 1) -> nn.Conv2d
     return nn.Conv2d(cin, cout, k, s, padding=k // 2, groups=groups, bias=False)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class SqueezeExcite(nn.Module):
@@ -130,14 +134,16 @@ class InvertedResidual(nn.Module):
 
 
 class EfficientNet(nn.Module):
-    """EfficientNet-``variant`` with a ``num_classes`` linear head (inference:
-    BatchNorm on running statistics, no dropout)."""
+    """EfficientNet-``variant`` with a ``num_classes`` linear head.  In ``eval()``
+    BatchNorm runs on its running statistics and there is no dropout; in
+    ``train()`` the pooled features go through dropout at the variant's rate
+    (``drop_rate``), its mask drawn from ``forward``'s ``dropout_generator``."""
 
     def __init__(self, variant: str = "b3", num_classes: int = 2, in_chans: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        width, depth, _, _ = _CFG[variant]
+        width, depth, _, self.drop_rate = _CFG[variant]
         stem = round_filters(32, width)
         self.conv_stem = _conv(in_chans, stem, 3, 2)
         self.bn1 = _bn(stem)
@@ -179,21 +185,25 @@ class EfficientNet(nn.Module):
             m.momentum = 1.0  # running statistics := this batch's statistics
         images = torch.rand((4, self.conv_stem.in_channels, 96, 96), generator=generator)
         self.train()
-        self._forward(images.to(self.classifier.weight.device))
+        with torch_batch_statistics(self):
+            self._forward(images.to(self.classifier.weight.device))
         self.eval()
         for m in bns:
-            m.momentum = 0.1
+            m.momentum = BN_MOMENTUM
         to_compute_dtype(self, self.dtype)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._forward(x.to(self.dtype))
+    def forward(self, x: torch.Tensor, dropout_generator: torch.Generator = None) -> torch.Tensor:
+        return self._forward(x.to(self.dtype), dropout_generator)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, dropout_generator: torch.Generator = None) -> torch.Tensor:
         y = F.silu(self.bn1(self.conv_stem(x)))
         y = self.blocks(y)
-        y = F.silu(self.bn2(self.conv_head(y)))
-        return self.classifier(y.mean(dim=(2, 3)))
+        y = F.silu(self.bn2(self.conv_head(y))).mean(dim=(2, 3))
+        if self.training and self.drop_rate > 0:     # flax's Dropout: keep with 1 − rate, scale the kept
+            keep = torch.rand(y.shape, generator=dropout_generator, device=y.device) >= self.drop_rate
+            y = torch.where(keep, y / (1.0 - self.drop_rate), torch.zeros_like(y))
+        return self.classifier(y)
 
 
 def preprocess_classifier(images_u8: torch.Tensor, size: int = 380,

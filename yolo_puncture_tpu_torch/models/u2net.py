@@ -14,7 +14,9 @@ JAX package's variables into that state dict.
 
 Down-sampling is ``max_pool2d(2, 2, ceil_mode=True)``; up-sampling is
 ``jax.image.resize``'s bilinear (``ops/resize.py resize_bilinear``) at the
-ratios the odd sizes give (380 → 190 → 95 → 48 → 24 → 12 and back).
+ratios the odd sizes give (380 → 190 → 95 → 48 → 24 → 12 and back).  In
+``train()`` BatchNorm is flax's (``nn/common.py BatchNorm2d``) with the JAX
+package's momentum 0.9 and eps 1e-5.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_puncture_tpu_torch.nn.common import BatchNorm2d
 from yolo_puncture_tpu_torch.ops.resize import resize_bilinear
+from yolo_puncture_tpu_torch.registry import register_model
 
 
 def _maxpool2_ceil(x: torch.Tensor) -> torch.Tensor:
@@ -45,7 +49,7 @@ class REBNCONV(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, dirate: int = 1):
         super().__init__()
         self.conv_s1 = nn.Conv2d(in_ch, out_ch, 3, padding=dirate, dilation=dirate)
-        self.bn_s1 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn_s1 = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)   # flax's momentum 0.9
 
     def forward(self, x):
         return F.relu(self.bn_s1(self.conv_s1(x)))
@@ -167,3 +171,16 @@ def norm_pred(d: torch.Tensor) -> torch.Tensor:
     """Min-max normalisation over the whole tensor (the reference's ``normPRED``)."""
     ma, mi = d.max(), d.min()
     return (d - mi) / (ma - mi)
+
+
+def _ctor(small: bool):
+    def ctor(dtype: torch.dtype = torch.float32, **kw) -> U2Net:
+        if dtype != torch.float32:
+            raise ValueError(f"the port's U2Net computes in float32 only, not {dtype}")
+        return U2Net(small=small)
+
+    return ctor
+
+
+register_model(_ctor(False), name="u2net")
+register_model(_ctor(True), name="u2netp")

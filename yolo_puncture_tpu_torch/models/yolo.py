@@ -13,6 +13,10 @@ segmentation ``coeffs`` (B, A, nm), ``proto`` (B, Hp, Wp, nm), and
 ``pyramid`` = {P3, P4, P5}, the head's three inputs (B, h, w, C) as
 channels-last views (the shared-backbone tracker reads them;
 ``pyramid_channels_for`` gives their widths).
+
+Importing the module registers the JAX package's names: ``yolo{8,10,11}{scale}``
+and ``…-seg``, with the ``yolov8*`` and ``yolov10*`` aliases; each constructor
+takes ``nc``, ``dtype`` and ``task_override``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from yolo_puncture_tpu_torch.nn.common import (
     upsample_nearest_2x,
 )
 from yolo_puncture_tpu_torch.nn.heads import Detect, Segment
+from yolo_puncture_tpu_torch.registry import register_model
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -311,3 +316,20 @@ class YOLOModel(nn.Module):
             if i in self._needed:
                 saved[i] = x
         return out
+
+
+def _make(version, scale, task):
+    def ctor(nc: int = 80, dtype: torch.dtype = torch.float32, task_override: Optional[str] = None):
+        return YOLOModel(version, scale, nc, task_override or task, dtype=dtype)
+
+    return ctor
+
+
+for _v, _scales in (("v8", "nsmlx"), ("v10", "nsmblx"), ("v11", "nsmlx")):
+    for _s in _scales:
+        _num = _v[1:]
+        register_model(_make(_v, _s, "detect"), name=f"yolo{_num}{_s}")
+        register_model(_make(_v, _s, "segment"), name=f"yolo{_num}{_s}-seg")
+        if _v in ("v8", "v10"):  # the reference's weight names, 'yolov8n-seg'
+            register_model(_make(_v, _s, "detect"), name=f"yolov{_num}{_s}")
+            register_model(_make(_v, _s, "segment"), name=f"yolov{_num}{_s}-seg")

@@ -3,7 +3,8 @@
 Counterpart of ``yolo_puncture_tpu/predict/results.py``:
 ``results[0].boxes.cls / .conf / .xyxy / .xywh / .xyxyn``, ``.cpu().numpy()``
 chaining, ``results[0].masks.xy`` (largest outer contour per instance, original
-frame coordinates) and ``.masks.data`` (N, H, W) float {0, 1}.
+frame coordinates) and ``.masks.data`` (N, H, W) float {0, 1};
+``results[0].plot()`` draws them on the frame.
 """
 
 from __future__ import annotations
@@ -106,3 +107,28 @@ class Results:
 
     def __len__(self):
         return len(self.boxes)
+
+    def plot(self, line_width: int = 2, alpha: float = 0.4) -> np.ndarray:
+        """Annotated BGR image, the JAX package's ``Results.plot``: each mask blended
+        in at ``alpha`` with a colour from ``default_rng(7)``, then, where cv2 is
+        installed, each box and its ``name conf`` label in the same colour."""
+        img = self.orig_img.copy() if self.orig_img is not None else np.zeros((*self.orig_shape, 3), np.uint8)
+        rng = np.random.default_rng(7)
+        colors = rng.integers(64, 255, size=(max(len(self.boxes), 1), 3))
+        if self.masks is not None:
+            for i, m in enumerate(self.masks.data):
+                col = colors[i % len(colors)]
+                sel = m > 0.5
+                img[sel] = (img[sel] * (1 - alpha) + col * alpha).astype(np.uint8)
+        try:
+            import cv2
+        except ImportError:
+            return img
+        for i in range(len(self.boxes)):
+            x1, y1, x2, y2 = self.boxes.xyxy[i].astype(int)
+            col = tuple(int(c) for c in colors[i % len(colors)])
+            cv2.rectangle(img, (x1, y1), (x2, y2), col, line_width)
+            cls_id = int(self.boxes.cls[i])
+            label = f"{self.names.get(cls_id, cls_id)} {self.boxes.conf[i]:.2f}"
+            cv2.putText(img, label, (x1, max(12, y1 - 4)), cv2.FONT_HERSHEY_SIMPLEX, 0.5, col, 1, cv2.LINE_AA)
+        return img

@@ -1,8 +1,10 @@
 """Model registry: a name → a constructor that returns an ``nn.Module``.
 
 Counterpart of ``yolo_puncture_tpu/registry.py`` (the reference's timm string
-dispatch, ``timm.create_model(name, num_classes=...)``).  ``models/efficientnet.py``
-registers ``efficientnet_b0`` … ``efficientnet_b7`` when it is imported.
+dispatch, ``timm.create_model(name, num_classes=...)``).  Importing the package
+fills it: ``models/yolo.py`` registers the YOLO names, ``models/efficientnet.py``
+``efficientnet_b0`` … ``efficientnet_b7`` and ``models/u2net.py`` ``u2net`` and
+``u2netp``; the JAX package's ``van_b0`` … ``van_b6`` wait for ROADMAP item 12b.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The mask tracker of the port: ``TrackerCore`` and its memory, the result
+"""The mask tracker of the port: ``TrackerCore``, its network and its memory, the result
 saver of the tracking app (``ResultSaver``, ``flush_buffer``,
 ``get_input_frame_for_deva``), and the streaming tracker of the benchmark
 (``build_bench_tracker``)."""
@@ -12,6 +12,7 @@ from yolo_puncture_tpu_torch.track.core import (  # noqa: F401
     TrackerCore,
 )
 from yolo_puncture_tpu_torch.track.memory import MemoryState, init_memory  # noqa: F401
+from yolo_puncture_tpu_torch.track.network import PropagationNetwork  # noqa: F401
 from yolo_puncture_tpu_torch.track.saver import (  # noqa: F401
     ResultSaver,
     flush_buffer,
@@ -32,14 +33,17 @@ def reference_tracker_geometry(frame_hw, min_side: int = 480):
 
 def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, window: int = 4,
                         frame_hw=(720, 1280), variables=None, device=None, max_objects: int = 4,
-                        full_res_ids: bool = False, affinity_bf16: bool = False, pyramid_channels=None):
+                        full_res_ids: bool = False, affinity_bf16: bool = False, pyramid_channels=None,
+                        enable_long_term: bool = False):
     """Streaming propagation over frame batches, the JAX package's benchmark helper.
 
     Returns (initial memory, fn(memory, frames_u8, pyramid=None) → (memory,
     ids)): the caller carries the ring memory from batch to batch.  The tracker is a
     ``TrackerCore`` at ``reference_tracker_geometry(frame_hw, min_side)`` (480×864
     for 720p), ``max_objects`` slots with slot 0 active, a ring of 8, long-term
-    memory off, in ``dtype`` (fp32 by default), with ``variables`` (a seeded
+    memory off unless ``enable_long_term`` (``bench.py``'s ``BENCH_LT=1``: the
+    readout is then the dense one, which returns the attention usage), in
+    ``dtype`` (fp32 by default), with ``variables`` (a seeded
     random init by default), with ``affinity_bf16`` (the readout's logits
     rounded to bf16, as ``bench.py``'s fused step sets it); ``fn.core`` is that
     tracker.  ``fn`` takes BGR or
@@ -66,7 +70,7 @@ def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, windo
         image_size=reference_tracker_geometry(frame_hw, min_side),
         max_objects=max_objects, mem_frames=8,
         mem_every=window if window > 1 else 5,
-        enable_long_term=False, dtype=dtype or torch.float32, device=device, affinity_bf16=affinity_bf16,
+        enable_long_term=enable_long_term, dtype=dtype or torch.float32, device=device, affinity_bf16=affinity_bf16,
         pyramid_adapter=pyramid_channels is not None, pyramid_channels=pyramid_channels or (128, 256, 512),
     )
     active = core.memory.active.clone()

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yolo_puncture_tpu_torch.models.yolo import pyramid_channels_for  # noqa: F401  (the JAX module's name)
 from yolo_puncture_tpu_torch.track.core import TrackerCore
 from yolo_puncture_tpu_torch.track.network import clip
 

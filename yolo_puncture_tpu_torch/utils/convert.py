@@ -29,8 +29,9 @@ load through the same ``load_classifier_state_dict``.  ``export_u2net_state_dict
 maps the JAX package's U²-Net variables onto the reference's torch names, which
 ``models/u2net.py`` carries.
 
-The other way: ``tracker_variables`` turns a ``PropagationNetwork`` state dict
-back into the tracker's flax variable tree, and ``write_msgpack`` encodes such a
+The other way: ``yolo_variables`` turns a YOLO state dict back into the JAX
+package's flax variables and ``tracker_variables`` a ``PropagationNetwork``
+state dict into the tracker's flax variable tree, and ``write_msgpack`` encodes such a
 tree as ``flax.serialization.msgpack_serialize`` does (keys sorted, ndarrays as
 extension type 1), so a checkpoint the port trains loads in both packages
 (``export_tracker_msgpack``).
@@ -216,6 +217,54 @@ def load_yolo_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
         raise ValueError(
             f"state dict does not fit the model: missing {missing[:8]}, unexpected {unexpected[:8]}"
         )
+
+
+_PORT_MODEL = re.compile(r"^model\.(\d+)\.")
+_PORT_HEAD_NESTED = re.compile(r"(one2one_)?cv([234])\.(\d+)\.(\d+)\.(\d+)\.")
+_PORT_HEAD_FLAT = re.compile(r"(one2one_)?cv([234])\.(\d+)\.(\d+)\.")
+_PORT_CIB = re.compile(r"cv1\.(\d+)\.")
+_PORT_M = re.compile(r"(?:^|(?<=\.))m\.(\d+)\.")
+_PORT_FFN = re.compile(r"ffn\.(\d+)\.")
+_LEAF_BACK = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
+              "bias": ("params", "bias")}
+
+
+def yolo_variables(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """An ultralytics-keyed YOLO state dict (the port's ``YOLOModel.state_dict()``)
+    → the JAX package's flax variable tree (``params`` / ``batch_stats`` nested
+    dicts of fp32 numpy arrays), the inverse of ``export_yolo_state_dict``: the
+    key map run backwards, OIHW → HWIO, the ``ConvTranspose`` kernel flipped back,
+    BatchNorm's ``weight`` → ``scale``.  Each key must map back to itself through
+    ``yolo_flax_path_to_torch_key``, or this raises."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        k, leaf = key.rsplit(".", 1)
+        k = _PORT_MODEL.sub(lambda m: f"model_{m.group(1)}.", k + ".")
+        k = _PORT_HEAD_NESTED.sub(
+            lambda m: f"{m.group(1) or ''}cv{m.group(2)}_{m.group(3)}.c{m.group(4)}_{m.group(5)}.", k)
+        k = _PORT_HEAD_FLAT.sub(lambda m: f"{m.group(1) or ''}cv{m.group(2)}_{m.group(3)}.c{m.group(4)}.", k)
+        k = _PORT_CIB.sub(lambda m: f"cv1_{m.group(1)}.", k)
+        k = _PORT_M.sub(lambda m: f"m_{m.group(1)}.", k)
+        k = _PORT_FFN.sub(lambda m: f"ffn_{m.group(1)}.", k)
+        path = tuple(k[:-1].split("."))
+        a = np.asarray(value.detach().cpu().float() if isinstance(value, torch.Tensor) else value, np.float32)
+        if leaf == "weight" and a.ndim == 4:
+            collection, name = "params", "kernel"
+            a = a.transpose(2, 3, 0, 1)[::-1, ::-1] if path[-1] == "upsample" else a.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            collection, name = "params", ("kernel" if a.ndim == 2 else "scale")
+            a = a.T if a.ndim == 2 else a
+        else:
+            collection, name = _LEAF_BACK[leaf]
+        if yolo_flax_path_to_torch_key(path, name) != key:
+            raise ValueError(f"cannot map '{key}' to a flax path of the JAX package's YOLO")
+        node = out[collection]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +483,6 @@ def export_tracker_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
 
 _TRACKER_LEAF = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
                  "bias": ("params", "bias")}
-_PORT_M = re.compile(r"(?:^|(?<=\.))m\.(\d+)\.")
 
 
 def tracker_variables(sd: Mapping[str, Any]) -> Dict[str, Any]:
