@@ -42,7 +42,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      seg+track step (``python -m yolo_puncture_tpu_torch.bench``: B 128 of
      720×1280, bf16 YOLOv10-S seg, the bf16 tracker at 480×864, window 4) for 5
      timed steps, whose line it prints; the tracker-quality protocol
-     (``track/quality.py``, fp32 and bf16) against the JAX package's 0.662;
+     (``track/quality.py``, fp32, bf16 and the int8 ring) against the JAX package's
+     0.662, 0.662 and 0.663;
      the tracking app ``apps/track_video.py`` (3i: its ``parse_args``,
      ``make_config``, ``build_models`` and ``track`` on 20 seeded 720×1280 frames
      of a moving bar, the tracker at 480×864 with the needle checkpoint,
@@ -93,7 +94,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      ``proto_decode_bf16`` once a batch, its pipeline output equal to
      ``process_frames`` of the same frames), ``--mode e2e_device``, ``--unfused``
      (the readout and tail kernels launched) and ``--long-term`` (the dense readout:
-     ``memory_readout`` at 0, ``decode_tail`` launched), each line printed;
+     ``memory_readout`` at 0, ``decode_tail`` launched), each line printed; video
+     files (3x): the needle clip and the bar clip written as mp4 with cv2 and read
+     by ``process_videos``, ``track_video``'s ``main`` and the app's video mode
+     (``yolo_inference``, mp4 in and out), each held to the run on the frames
+     decoded from the same file; int8 (3y): one int8 convolution at YOLOv10-S's
+     shapes against its CPU run (operands equal, int32 sums equal to float64) and
+     timed beside cuDNN's, ``YOLO(int8_serving=True).predict`` fp32 and bf16 with
+     dynamic scales and after ``calibrate_int8`` of the needle mp4, ``serve --int8
+     --calib_dir``, the tracker with the int8 ring (``memory_readout`` at 0) against
+     its CPU run, and the bench's ``--int8-det``, ``--int8-det --int8-static`` and
+     ``--int8-mem`` in turns with the default step, each line printed;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -133,6 +144,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12    # outside the tensor cores
 TF32_FLOP_PER_S = 495e12   # tensor cores
 BF16_FLOP_PER_S = 989e12   # tensor cores
+INT8_OPS_PER_S = 1979e12   # tensor cores, dense
 
 SOFT_ATOL = 1e-6   # soft masks: kernel vs plain version (fp32 sums in another order)
 THRESH_BAND = 1e-6  # binary masks may differ only where the soft value is this close to the threshold
@@ -208,7 +220,7 @@ DET_BF16_SCORE_MEAN = 1e-3
 DET_BF16_BOX_MEAN_PX = 2.0
 STEP_BF16_CONF_MEAN = 0.05
 CLS_BF16_PROB_MEAN = 0.05
-# the tracker-quality protocol on the card against the JAX package's 0.662 (both rows)
+# the tracker-quality protocol on the card against the JAX package's figures (every row)
 QUALITY_TOL = 0.005
 BENCH_BATCH, BENCH_ITERS = 128, 5
 
@@ -2310,6 +2322,534 @@ def bench_modes_phase(smi: str, imgsz: int = 640, batch: int = BENCH_BATCH, iter
     return total
 
 
+# ---------------------------------------------------------------------------
+# 3x. video files: the clips written as mp4 and read back by the entry points
+# ---------------------------------------------------------------------------
+
+
+def write_mp4(path: str, frames_bgr, fps: float = 30.0) -> list:
+    """Write BGR frames as an mp4 (cv2's ``mp4v``) and read it back: returns the
+    decoded BGR frames, as cv2 hands them to every reader of the file."""
+    import cv2
+
+    h, w = frames_bgr[0].shape[:2]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter.fourcc(*"mp4v"), fps, (w, h))
+    if not writer.isOpened():
+        raise AssertionError(f"cv2 cannot write {path}")
+    for f in frames_bgr:
+        writer.write(np.ascontiguousarray(f))
+    writer.release()
+    cap = cv2.VideoCapture(path)
+    decoded = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        decoded.append(f)
+    cap.release()
+    if len(decoded) != len(frames_bgr) or decoded[0].shape != frames_bgr[0].shape:
+        raise AssertionError(f"{path}: wrote {len(frames_bgr)} frames, read {len(decoded)}")
+    return decoded
+
+
+def video_phase(smi: str, pipe, pipe_conf: float, clip, tv_argv, tv_frames, app_conf: float, imgsz: int = 640,
+                out_dir=None, device=None):
+    """3x: the needle clip and the tracking app's bar clip written as mp4 files with
+    cv2 and read by the entry points, each held to the run on the frames decoded
+    from the same file: ``process_videos`` against ``process_frames`` (equal
+    output), ``track_video``'s ``main`` on the mp4 against ``run_track_app`` on
+    the ``VideoReader``'s frames (equal ``pred.json`` segments, id maps), and the
+    app's video mode (``yolo_inference`` reads and writes mp4) against
+    ``annotate_video`` on the decoded frames (equal info, every frame written).
+    ``tv_argv``: the app's flags without ``--img_path`` and ``--output``.
+    Returns (launches by kernel, the needle mp4's path, its decoded frames)."""
+    from yolo_puncture_tpu_torch.apps import app as app_mod
+    from yolo_puncture_tpu_torch.apps import track_video as tv
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
+    from yolo_puncture_tpu_torch.pipeline.video import VideoReader, sort_key
+    from yolo_puncture_tpu_torch.utils.png import decode_png
+
+    out_dir = out_dir or os.path.join(ROOT, "build", "video")
+    os.makedirs(out_dir, exist_ok=True)
+    launches = {"proto_decode": 0, "memory_readout": 0, "decode_tail": 0}
+    t = time.perf_counter()
+    needle_mp4 = os.path.join(out_dir, "needle.mp4")
+    decoded = write_mp4(needle_mp4, list(clip))
+    log(f"video files: {needle_mp4} ({len(decoded)} frames {decoded[0].shape[1]}x{decoded[0].shape[0]}, "
+        f"{os.path.getsize(needle_mp4)} bytes) written and read back in {time.perf_counter() - t:.1f} s; mean abs "
+        f"difference from the frames written {float(np.abs(np.stack(decoded).astype(np.int16) - clip).mean()):.3f}")
+
+    # the speed pipeline on the file
+    proto_decode.launches = 0
+    outs = pipe.process_videos([needle_mp4], conf=pipe_conf)
+    sync()
+    launches["proto_decode"] += proto_decode.launches
+    ref = pipe.process_frames(decoded, 30.0, conf=pipe_conf)
+    same_pipeline_output(outs["needle"], ref)
+    log(f"main path (process_videos on {needle_mp4}): proto_decode launched {proto_decode.launches} times; the same "
+        f"as process_frames on its decoded frames: {json.dumps(check_pipeline_output(outs['needle'], len(decoded), *decoded[0].shape[:2]))}")
+    if proto_decode.launches <= 0:
+        raise AssertionError("process_videos did not launch proto_decode")
+
+    # the tracking app on the file
+    bar_mp4 = os.path.join(out_dir, "bar.mp4")
+    write_mp4(bar_mp4, [f[..., ::-1] for f in tv_frames])
+    runs = {}
+    for what in ("file", "frames"):
+        out = os.path.join(out_dir, f"track_{what}")
+        mr.memory_readout.launches = dt.decode_tail.launches = proto_decode.launches = 0
+        if what == "file":
+            tv.main(list(tv_argv) + ["--img_path", bar_mp4, "--output", out], device=device)
+            name = tv.make_config(tv.parse_args(list(tv_argv) + ["--img_path", bar_mp4, "--output", out]),
+                                  len(tv_frames))["video_name"]
+            with open(os.path.join(out, "pred.json")) as f:
+                pred = json.load(f)
+            ann = os.path.join(out, "Annotations", name)
+            ids = [decode_png(open(os.path.join(ann, p), "rb").read())
+                   for p in sorted(os.listdir(ann), key=sort_key)]                      # frame_2 before frame_10
+        else:
+            reader = VideoReader(bar_mp4)
+            run = run_track_app(list(tv_argv) + ["--img_path", bar_mp4, "--output", out],
+                                [reader[i][0] for i in range(len(reader))], device=device)
+            pred = run["pred"]
+            ann = os.path.join(out, "Annotations", run["cfg"]["video_name"])
+            ids = [decode_png(open(os.path.join(ann, p), "rb").read()) for p in sorted(os.listdir(ann))]
+        sync()
+        runs[what] = (pred, ids, {"proto_decode": proto_decode.launches, "memory_readout": mr.memory_readout.launches,
+                                  "decode_tail": dt.decode_tail.launches})
+    (pf, idf, lf), (pr, idr, _) = runs["file"], runs["frames"]
+    seg = [[s["id"] for s in a["segments_info"]] for a in pf["annotations"]]
+    agree = float(np.mean([(a == b).mean() for a, b in zip(idf, idr)])) if len(idf) == len(idr) else 0.0
+    log(f"main path (track_video main on {bar_mp4}, {len(tv_frames)} frames): launches {json.dumps(lf)}; segments "
+        f"per frame {[len(s) for s in seg]}; annotation PNGs equal to the run on the VideoReader's frames on "
+        f"{agree:.6f} of the pixels")
+    if [[s["id"] for s in a["segments_info"]] for a in pr["annotations"]] != seg or agree < TRACK_ID_AGREE:
+        raise AssertionError("track_video on the mp4 differs from its run on the decoded frames")
+    if min(lf.values()) <= 0:
+        raise AssertionError(f"track_video on the mp4 did not launch every kernel: {lf}")
+    for k, n in lf.items():
+        launches[k] += n
+
+    # the app's video mode: reads the mp4 and writes an annotated one
+    proto_decode.launches = 0
+    _, out_mp4, info = app_mod.yolo_inference(None, needle_mp4, yolo_conf_threshold=app_conf, imgsz=imgsz,
+                                              return_info=True, device=device)
+    sync()
+    app_launches = proto_decode.launches
+    vpipe, vunet = app_mod.build_video_models(app_mod.build_detector("seg/yolo11n-seg-finetune.pt", device),
+                                              "u2netp_finetune_70.pth", "EfficientNet/efficientnet_b3.pth.tar", 8,
+                                              imgsz, 380)
+    _, ref_info = app_mod.annotate_video(decoded, 30.0, vpipe, vunet, app_conf, 20, 380)
+    import cv2
+
+    cap = cv2.VideoCapture(out_mp4)
+    n_out = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    os.remove(out_mp4)
+    log(f"main path (the app's video mode on {needle_mp4}): proto_decode launched {app_launches} times; "
+        f"{json.dumps(info)}; {n_out} frames written; annotate_video on the decoded frames: {json.dumps(ref_info)}")
+    if info != ref_info or n_out != len(decoded) or app_launches <= 0:
+        raise AssertionError("the app's mp4 video mode differs from annotate_video on the decoded frames")
+    launches["proto_decode"] += app_launches
+    log(f"video files phase: {time.perf_counter() - t:.1f} s [{smi}]")
+    return launches, needle_mp4, decoded
+
+
+# ---------------------------------------------------------------------------
+# 3y. int8: convolutions, predict, serve, the int8 ring, the bench's int8 modes
+# ---------------------------------------------------------------------------
+
+# (a) YOLOv10-S's model.1 at B 4 of 640²: 32 → 64 channels, 3×3, stride 2, on a 320² map
+INT8_CONV_CASE = (4, 32, 320, 320, 64, 3, 2)
+# one int8 convolution on the card against its CPU run: the same int8 operands, the int32
+# sums exact (float64 holds them), the dequantised output within this of its largest value
+INT8_OUT_REL = 1e-6
+# every int8 convolution of a model on the card, fed the card's own input of that
+# convolution in the int8 forward, is held to the CPU's int8 convolution of the same
+# input within INT8_OUT_REL (check_int8_layers).  The whole model cannot be held so
+# closely: fp32 activations that differ in the last bit (cuDNN's and the CPU's sums)
+# put some int8 operands on the other side of a rounding tie, which later layers carry
+# on, as between the port and the JAX package on the CPU (tests/test_torch_quant.py).
+# So, as there, the card's int8 head is held to the CPU's int8 head within INT8_DIRECT
+# times the CPU's int8-versus-fp gap (the CPU int8 head against the card's fp head: a
+# gap the card's int8 result does not enter; mean abs over every anchor), and lies more
+# than INT8_RAN times that gap from the card's fp head (the int8 path ran); predict's
+# detections (counts, paired boxes, sorted scores) on the card within INT8_DIRECT times
+# the CPU int8 run's distance from the card's fp run, or than compare_to_cpu's fp
+# tolerances (INT8_PREDICT_FLOOR) where that distance is smaller: on a small input
+# the selected boxes are mostly clipped to the frame, and either distance comes from a
+# few of them.  Calibrated scales (the fp
+# forward's percentiles) within INT8_SCALE_REL of the CPU's: fp32 sums in another
+# order; in bf16 each layer rounds its output to 8 significant bits on both sides from
+# other fp32 sums, so a scale moves by a few bf16 ulps, as the bf16 layers do
+# (tests/test_torch_bf16.py LAYER_TOL)
+INT8_DIRECT = 2.0
+INT8_RAN = 0.5
+INT8_PREDICT_FLOOR = {"count": 0, "boxes": 0.05, "scores": 1e-4}
+INT8_SCALE_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -4}
+
+
+def _paired_mean_err(a, b) -> float:
+    """Mean abs difference of two (N, 4) box sets paired by least total L1 distance."""
+    from scipy.optimize import linear_sum_assignment
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if len(a) == 0 or len(b) == 0:
+        return 0.0
+    r, c = linear_sum_assignment(np.abs(a[:, None] - b[None]).sum(-1))
+    return float(np.abs(a[r] - b[c]).mean())
+
+
+def int8_distance(got, ref) -> dict:
+    """Two lists of ``Results`` of the same frames, the worst frame's: difference in
+    detection counts; mean abs difference of the boxes paired by least L1
+    distance and of the scores sorted (the best min(n, m) of each); share of equal
+    pixels of the union of the masks."""
+    out = {"count": 0, "boxes": 0.0, "scores": 0.0, "masks": 1.0}
+    for g, r in zip(got, ref):
+        n = min(len(g.boxes), len(r.boxes))
+        out["count"] = max(out["count"], abs(len(g.boxes) - len(r.boxes)))
+        out["boxes"] = max(out["boxes"], _paired_mean_err(g.boxes.xyxy, r.boxes.xyxy))
+        if n:
+            d = np.abs(np.sort(g.boxes.conf)[::-1][:n] - np.sort(r.boxes.conf)[::-1][:n])
+            out["scores"] = max(out["scores"], float(d.mean()))
+        if g.masks is not None and r.masks is not None and n:
+            out["masks"] = min(out["masks"], float((g.masks.data.any(0) == r.masks.data.any(0)).mean()))
+    return out
+
+
+def int8_heads(det, frames, imgsz) -> dict:
+    """The head's boxes and class scores over every anchor (numpy fp32) for
+    ``frames`` letterboxed as ``predict`` does, under the predictor's int8 switch."""
+    from yolo_puncture_tpu_torch.nn.quant import int8_convs
+    from yolo_puncture_tpu_torch.ops.letterbox import letterbox
+
+    imgs, _, _ = letterbox(torch.from_numpy(frames).to(det.device), imgsz, bgr_to_rgb=True, dtype=det.model.dtype)
+    with torch.no_grad(), int8_convs(det.int8_serving, act_scales=det._act_scales if det.int8_serving else None):
+        out = det.model(imgs)
+    return {k: out[k].float().cpu().numpy() for k in ("boxes", "probs")}
+
+
+def check_int8_heads(what: str, got: dict, ref: dict, base: dict) -> dict:
+    """``got`` (an int8 head on the card) against ``ref`` (its CPU run) within
+    INT8_DIRECT times the gap of ``ref`` from ``base`` (the fp head on the card),
+    and ``got`` more than INT8_RAN times that gap from ``base``; mean abs over
+    every anchor, as ``tests/test_torch_quant.py`` holds the port's whole model
+    to the JAX package's.  Returns {output: (distance, gap, from fp)}."""
+    out = {}
+    for k in ("boxes", "probs"):
+        g = got[k].astype(np.float64)
+        d, gap, ran = (float(np.abs(a - b).mean()) for a, b in ((g, ref[k]), (ref[k], base[k]), (g, base[k])))
+        out[k] = (d, gap, ran)
+        if not (gap > 0 and d <= INT8_DIRECT * gap and ran > INT8_RAN * gap):
+            raise AssertionError(f"{what}: {k} {d:.4g} from the CPU run and {ran:.4g} from fp, against the CPU's "
+                                 f"int8-vs-fp gap {gap:.4g} (limits {INT8_DIRECT} x and more than {INT8_RAN} x)")
+    return out
+
+
+def check_int8_distance(what: str, got: dict, ref: dict) -> None:
+    """``int8_distance`` of predict's int8 results on the card from its CPU run
+    (``got``) within INT8_DIRECT times that of the CPU run from the card's fp run
+    (``ref``) or INT8_PREDICT_FLOOR, whichever is larger, in detection counts,
+    paired boxes and sorted scores."""
+    for k, floor in INT8_PREDICT_FLOOR.items():
+        if not got[k] <= INT8_DIRECT * max(ref[k], floor):
+            raise AssertionError(f"{what}: {k} {got[k]:.4g} from the CPU run, not within {INT8_DIRECT} x the CPU "
+                                 f"run's {ref[k]:.4g} from fp (or {floor})")
+
+
+def check_int8_layers(det, cpu, frames, imgsz) -> dict:
+    """Every int8 convolution of ``det`` (on the card) fed its input in the card's
+    int8 forward of ``frames``, against the same convolution of ``cpu`` (the same
+    model on the CPU) on the same input, with the predictor's scales: within
+    INT8_OUT_REL of its largest value (YOLOv10's eval forward runs 72 of its 84:
+    not the one-to-many head).  Returns the count and the worst."""
+    from yolo_puncture_tpu_torch.nn import quant
+    from yolo_puncture_tpu_torch.nn.common import ConvBN
+
+    cpu_convs = dict(cpu.model.named_modules())
+    inputs, hooks = {}, []
+    for name, m in det.model.named_modules():
+        if isinstance(m, ConvBN) and quant._eligible(m.conv):
+            hooks.append(m.register_forward_pre_hook(lambda mod, args, name=name: inputs.__setitem__(name, args[0])))
+    try:
+        int8_heads(det, frames, imgsz)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = 0.0
+    with torch.no_grad():
+        for name, x in inputs.items():
+            conv = det.model.get_submodule(name).conv
+            scale = det._act_scales.get(conv.flax_path) if det._act_scales else None
+            got = quant._int8_conv(conv, x, scale).float().cpu()
+            ref = quant._int8_conv(cpu_convs[name].conv, x.cpu(), scale).float()
+            worst = max(worst, float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)))
+    if not inputs or not worst <= INT8_OUT_REL:
+        raise AssertionError(f"{len(inputs)} int8 convolutions on the card: {worst:.3g} from the CPU's")
+    return {"convolutions": len(inputs), "worst_rel": worst}
+
+
+def check_int8_conv(device, case=INT8_CONV_CASE, seed=700) -> dict:
+    """(a): ``nn/quant.py _int8_conv`` on the card against its CPU run on seeded
+    fp32 inputs: the int8 operands equal, the int32 product equal to a float64
+    convolution of the same int8 values, the output within INT8_OUT_REL; then
+    the times of the int8 convolution (and of its ``int_mm`` alone) beside cuDNN's
+    fp32 (TF32 off) and bf16 convolutions of the same shapes."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from yolo_puncture_tpu_torch.nn import quant
+
+    B, C, H, W, O, k, s = case
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, C, H, W), generator=g)
+    conv = torch.nn.Conv2d(C, O, k, s, k // 2, bias=False)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * (C * k * k) ** -0.5)
+    conv_d, xd = copy.deepcopy(conv).to(device), x.to(device)
+    quant.freeze_int8_weights(conv)                      # as the predictor's model holds them
+    quant.freeze_int8_weights(conv_d)
+    xi, sx = quant.quantize_activation(x)
+    ki, sk = quant.quantize_weight(conv.weight)
+    xi_d, sx_d = quant.quantize_activation(xd)
+    ki_d, sk_d = quant.quantize_weight(conv_d.weight)
+    if not (torch.equal(xi_d.cpu(), xi) and torch.equal(ki_d.cpu(), ki) and torch.equal(sx_d.cpu(), sx)
+            and torch.equal(sk_d.cpu(), sk)):
+        raise AssertionError("int8 operands on the card differ from the CPU's")
+    y = quant.conv2d_int8(xi_d, ki_d, conv.stride, conv.padding, conv.dilation)
+    ref64 = F.conv2d(xi_d.double(), ki_d.double(), stride=conv.stride, padding=conv.padding)
+    if y.dtype != torch.int32 or not torch.equal(y.double(), ref64):
+        raise AssertionError("the int32 product on the card differs from a float64 convolution of its operands")
+    with torch.no_grad():
+        out_d = quant._int8_conv(conv_d, xd)
+        out_c = quant._int8_conv(conv, x)
+    rel = float((out_d.cpu() - out_c).abs().max() / out_c.abs().max())
+    if not rel <= INT8_OUT_REL:
+        raise AssertionError(f"the int8 convolution on the card is {rel:.3g} from the CPU's")
+    cols, _ = quant._im2col(xi_d, k, k, conv.stride, conv.padding, conv.dilation)
+    krows = quant._kernel_rows(ki_d)
+    w16, x16 = conv_d.weight.to(torch.bfloat16), xd.to(torch.bfloat16)
+    with torch.no_grad():
+        ms = {"int8": cuda_time_ms(lambda: quant._int8_conv(conv_d, xd), iters=20, warmup=3),
+              "int8 from a bf16 input": cuda_time_ms(lambda: quant._int8_conv(conv_d, x16), iters=20, warmup=3),
+              "int_mm alone": cuda_time_ms(lambda: quant.int_mm(cols, krows), iters=20, warmup=3),
+              "cudnn fp32": cuda_time_ms(lambda: conv_d(xd), iters=20, warmup=3),
+              "cudnn bf16": cuda_time_ms(lambda: F.conv2d(x16, w16, stride=s, padding=k // 2), iters=20, warmup=3)}
+    Ho, Wo = y.shape[2:]
+    ops = 2 * B * Ho * Wo * O * C * k * k
+    return {"max_rel_err": rel, "ms": ms, "int8_ops": ops, "im2col_bytes": cols.numel(),
+            "int8_bound_ms": max(ops / INT8_OPS_PER_S, (x.numel() * 4 + out_c.numel() * 4) / HBM_BYTES_PER_S) * 1e3}
+
+
+def int8_phase(smi: str, frames, calib_video: str, calib_frames, serve_frames, pngs, queries, probs32,
+               track_frames, track_masks, conf: float = 0.018, imgsz: int = 640, bench_batch: int = BENCH_BATCH,
+               bench_iters: int = BENCH_ITERS, device=None, tmp=None) -> dict:
+    """3y: (a) one int8 convolution (``check_int8_conv``); (b) ``YOLO(int8_serving=True)
+    .predict`` of ``frames``, fp32 and bf16, with dynamic scales and after
+    ``calibrate_int8`` of ``calib_video`` (predict's video source; the same scales
+    as from ``calib_frames``, its decoded frames), each held to the port's CPU run
+    (INT8_DIRECT) and timed beside fp32 and bf16; (c) ``serve --int8 --calib_dir``
+    over ``pngs`` from SERVE_CLIENTS clients, each response held to a direct int8
+    predict; (d) the int8-ring tracker at 480×864 with the needle checkpoint over
+    the bar clip against its CPU run, beside ``probs32`` (the fp32 tracker's);
+    (e) the bench's ``--int8-det``, ``--int8-det --int8-static`` and ``--int8-mem``
+    in turns with the default step.  Returns the launches by kernel."""
+    import contextlib
+    import io
+
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch import bench as bm
+    from yolo_puncture_tpu_torch.apps import serve
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
+    from yolo_puncture_tpu_torch.track import TrackerCore
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    launches = {"proto_decode": 0, "proto_decode_bf16": 0, "decode_tail": 0, "memory_readout_bf16": 0,
+                "decode_tail_bf16": 0}
+    conv = check_int8_conv(dev)
+    log(f"int8 convolution {INT8_CONV_CASE} (B, C, H, W, O, k, stride) on the card: operands equal to the CPU's, int32 "
+        f"sums equal to float64, output {conv['max_rel_err']:.3g} from the CPU's; ms {json.dumps(conv['ms'])}; "
+        f"{conv['int8_ops']} int8 operations (bound {conv['int8_bound_ms']:.4f} ms), an im2col of "
+        f"{conv['im2col_bytes']} bytes [{smi}]")
+
+    # (b) predict
+    kw = dict(conf=conf, imgsz=imgsz)
+    times = {}
+    for dtype in (torch.float32, BF16):
+        name = "bf16" if dtype == BF16 else "fp32"
+        det_fp = YOLO("yolo10s-seg", nc=1, seed=0, dtype=dtype, device=device)
+        det8 = YOLO("yolo10s-seg", nc=1, seed=0, dtype=dtype, int8_serving=True, device=device)
+        cpu8 = YOLO("yolo10s-seg", nc=1, seed=0, dtype=dtype, int8_serving=True, device="cpu")
+        ref_fp = det_fp.predict(list(frames), **kw)
+        for mode in ("dynamic", "calibrated"):
+            if mode == "calibrated":
+                t = time.perf_counter()
+                scales = dict(det8.calibrate_int8(calib_video, imgsz=imgsz))
+                cal_s = time.perf_counter() - t
+                same = det8.calibrate_int8(list(calib_frames), imgsz=imgsz) == scales
+                few = det8.calibrate_int8(list(calib_frames[:2]), imgsz=imgsz)
+                cpu_few = cpu8.calibrate_int8(list(calib_frames[:2]), imgsz=imgsz)
+                worst = max(abs(few[k] - cpu_few[k]) / cpu_few[k] for k in cpu_few)
+                log(f"calibrate_int8 ({name}) over {calib_video} ({len(calib_frames)} frames): {len(scales)} scales in "
+                    f"{cal_s:.2f} s, equal to those of its decoded frames: {same}; on two frames the card's within "
+                    f"{worst:.3g} of the CPU's")
+                if not same or set(few) != set(cpu_few) or worst > INT8_SCALE_REL[dtype] or len(scales) != 84:
+                    raise AssertionError("calibrate_int8 on the video, its frames or the CPU disagree")
+                det8._act_scales = scales
+                cpu8._act_scales = dict(scales)
+            proto_decode.launches = proto_decode.launches_bf16 = 0
+            got = det8.predict(list(frames), **kw)
+            sync()
+            n = proto_decode.launches_bf16 if dtype == BF16 else proto_decode.launches
+            launches["proto_decode_bf16" if dtype == BF16 else "proto_decode"] += n
+            check_results(got, len(frames), *frames[0].shape[:2])
+            cpu_got = cpu8.predict(list(frames), **kw)
+            gap, vs_cpu, cpu_gap = (int8_distance(a, b) for a, b in ((got, ref_fp), (got, cpu_got),
+                                                                      (cpu_got, ref_fp)))
+            what = f"int8 predict ({name}, {mode} scales) against its CPU run"
+            layers = check_int8_layers(det8, cpu8, frames, imgsz)
+            heads = check_int8_heads(what, int8_heads(det8, frames, imgsz), int8_heads(cpu8, frames, imgsz),
+                                     int8_heads(det_fp, frames, imgsz))
+            check_int8_distance(what, vs_cpu, cpu_gap)
+            log(f"main path (predict, {name} int8, {mode} scales, B {len(frames)}): proto_decode"
+                f"{'_bf16' if dtype == BF16 else ''} launched {n} times; detections {[len(r) for r in got]} ({name}: "
+                f"{[len(r) for r in ref_fp]}); predict's int8 results against {name} on the card {json.dumps(gap)}, "
+                f"against its CPU run {json.dumps(vs_cpu)}, the CPU run against {name} on the card "
+                f"{json.dumps(cpu_gap)}; each int8 convolution on its card input against the CPU's "
+                f"{json.dumps(layers)}; the head over every anchor (from the CPU run, the CPU run from {name} on "
+                f"the card, the card's from {name}): {json.dumps(heads)} [{smi}]")
+            if n <= 0 or (gap["count"] == 0 and gap["boxes"] == 0 and gap["scores"] == 0):
+                raise AssertionError(f"int8 predict ({name}) did not launch proto_decode or ran no int8 product")
+            times[f"{name} int8 {mode}"] = host_ms(lambda: det8.predict(list(frames), **kw))
+        times[name] = host_ms(lambda: det_fp.predict(list(frames), **kw))
+        del det_fp, det8, cpu8
+    log(f"predict B {len(frames)} of {frames[0].shape[0]}x{frames[0].shape[1]} at {imgsz}, ms (3 calls each): " + "; ".join(
+        f"{k} median {sorted(v)[1]:.1f} ({[round(x, 1) for x in v]})" for k, v in times.items()) + f" [{smi}]")
+
+    # (c) serve --int8 --calib_dir
+    tmp = tmp or os.path.join(ROOT, "build", "int8_calib")
+    os.makedirs(tmp, exist_ok=True)
+    for i, png in enumerate(pngs[:4]):
+        with open(os.path.join(tmp, f"calib{i}.png"), "wb") as f:
+            f.write(png)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        server, _ = serve.make_server(["--int8", "--calib_dir", tmp, "--host", "127.0.0.1", "--port", "0",
+                                       "--imgsz", str(imgsz)], device=device)
+    line = buf.getvalue().strip()
+    model = server.batcher.model
+    if line != f"int8 calibration: {len(model._act_scales)} conv scales frozen from {tmp}" or not model.int8_serving:
+        raise AssertionError(f"serve --int8 --calib_dir printed {line!r}")
+    server.start()
+    try:
+        drive_server(server, pngs[:SERVE_CLIENTS], queries[:SERVE_CLIENTS])          # warm-up
+        stats0 = json.loads(http_get(f"http://127.0.0.1:{server.port}/stats")[1])
+        proto_decode.launches = 0
+        t = time.perf_counter()
+        responses, latency = drive_server(server, pngs, queries)
+        serve_s = time.perf_counter() - t
+        sync()
+        serve_launches = proto_decode.launches
+        stats = json.loads(http_get(f"http://127.0.0.1:{server.port}/stats")[1])
+    finally:
+        server.stop()
+    n_exact = n_boxes = 0
+    for (code, got), frame, i in zip(responses, serve_frames, range(len(pngs))):
+        if code != 200:
+            raise AssertionError(f"int8 request {i} answered {code} {got}")
+        ref = serve.result_json(model.predict([frame], conf=conf, retina_masks=i % 2 == 1, imgsz=imgsz)[0],
+                                got["batch"], (-1, 0, 2)[i % 3])
+        n_exact += same_serve_json(got, ref, frame.shape[:2])
+        n_boxes += len(got["boxes"])
+    batches = stats["batches"] - stats0["batches"]
+    log(f"main path (serve --int8 --calib_dir, {len(pngs)} PNG uploads from {SERVE_CLIENTS} clients): proto_decode "
+        f"launched {serve_launches} times over {batches} device batches, {n_boxes} boxes; {n_exact} of {len(pngs)} "
+        f"responses equal to a direct int8 predict (static scales) to the last digit, the others within a rounding "
+        f"step; request latency ms p50 "
+        f"{np.percentile(latency, 50):.1f} p99 {np.percentile(latency, 99):.1f}, {len(pngs) / serve_s:.2f} requests/s "
+        f"[{smi}]")
+    if serve_launches <= 0 or n_boxes == 0:
+        raise AssertionError("the int8 server did not launch proto_decode or found nothing")
+    launches["proto_decode"] += serve_launches
+    del server, model
+
+    # (d) the int8 ring
+    core8 = TrackerCore(enable_long_term=False, variables=NEEDLE, quantized_memory=True, device=device,
+                        **TRACK_GEOMETRY)
+    mr.memory_readout.launches = dt.decode_tail.launches = 0
+    probs8 = drive_tracker(core8, track_frames, track_masks)
+    sync()
+    got = (mr.memory_readout.launches, dt.decode_tail.launches)
+    check_tracker_probs(probs8, len(probs8), core8)
+    cpu8 = TrackerCore(enable_long_term=False, variables=NEEDLE, quantized_memory=True, device="cpu",
+                       **TRACK_GEOMETRY)
+    probs_cpu = drive_tracker(cpu8, track_frames, track_masks, upto_first_window=True)
+    err = float(np.abs(probs8[:len(probs_cpu)] - probs_cpu).max())
+    agree = float((probs8[:len(probs_cpu)].argmax(1) == probs_cpu.argmax(1)).mean())
+    vs32 = (float(np.abs(probs8 - probs32).max()), float((probs8.argmax(1) == probs32.argmax(1)).mean()))
+    step_frames = [track_frames[6 + (i % 4)] for i in range(5)]
+    step_ms = host_ms(lambda: [core8.step(f) for f in step_frames])
+    window_ms = host_ms(lambda: core8.step_batch(step_frames))
+    log(f"main path (tracker with the int8 ring, {len(probs8)} frames at 480x864, needle checkpoint): memory_readout "
+        f"launched {got[0]} times, decode_tail {got[1]}; against its CPU run over {len(probs_cpu)} frames: max abs "
+        f"prob diff {err:.3g} (tol {TRACK_PROB_TOL}), id maps equal {agree:.6f}; against the fp32 ring on the card: "
+        f"{vs32[0]:.3g}, ids {vs32[1]:.6f}; 5 steps {sorted(step_ms)[1]:.1f} ms, a 5-frame window "
+        f"{sorted(window_ms)[1]:.1f} ms (median of 3) [{smi}]")
+    if got[0] != 0 or got[1] <= 0:
+        raise AssertionError(f"the int8-ring tracker launched memory_readout {got[0]} times and decode_tail {got[1]}")
+    if not (err <= TRACK_PROB_TOL and agree >= TRACK_ID_AGREE):
+        raise AssertionError("the int8-ring tracker on the card disagrees with its CPU run")
+    launches["decode_tail"] += got[1]
+    del core8, cpu8
+
+    # (e) the bench's int8 steps, in turns with the default step
+    lines = {}
+    for name, kw in (("default", {}), ("--int8-det", {"int8_det": True}),
+                     ("--int8-det --int8-static", {"int8_det": True, "int8_static": True}),
+                     ("--int8-mem", {"int8_mem": True}), ("default ", {})):
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        proto_decode.launches = proto_decode.launches_bf16 = 0
+        torch.cuda.reset_peak_memory_stats()
+        res, details = bm.run_bench(bench_batch, bench_iters, imgsz, track=True, device=device, **kw)
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_steps = bench_iters + 1
+        got = (proto_decode.launches_bf16, mr.memory_readout.launches, dt.decode_tail.launches)
+        log(f"main path (bench {name.strip()}, B {bench_batch}): {n_steps} steps launched proto_decode_bf16 {got[0]}, "
+            f"memory_readout {got[1]}, decode_tail {got[2]} times; steps ms "
+            f"{[round(v, 3) for v in details['steps_ms']]}, median {res['median_step_ms']:.3f}, checksum "
+            f"{details['chk']}, peak memory {peak:.2f} GiB"
+            + (f", {details['static_scales']} static scales" if details["static_scales"] else "") + f" [{smi}]")
+        want_readouts = 0 if kw.get("int8_mem") else n_steps * bench_batch // 4
+        if got != (n_steps, want_readouts, n_steps) or not np.isfinite(details["chk"]):
+            raise AssertionError(f"bench {name.strip()} launched {got}, not one decode, {want_readouts} readouts and "
+                                 "one tail a step")
+        if kw:
+            launches["proto_decode_bf16"] += got[0]
+            launches["memory_readout_bf16"] += got[1]
+            launches["decode_tail_bf16"] += got[2]
+        lines[name.strip() + (" (again)" if name.endswith(" ") else "")] = res
+    for name, res in lines.items():
+        log(f"bench {name}:")
+        print(smi, flush=True)
+        print(json.dumps(res), flush=True)
+    log(f"int8 phase: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
+def sync() -> None:
+    """Wait for the card (a no-op without one: the phases rehearse on the CPU)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2849,6 +3389,19 @@ def main() -> int:
 
     # -- 3w. the bench's other modes: e2e, e2e_device, unfused, long-term ------------------------------------
     for k, n in bench_modes_phase(smi, imgsz).items():
+        launches[k] += n
+
+    # -- 3x. video files: mp4 written with cv2 and read by the pipeline, the tracking app and the app ---------
+    tv_argv = ["--video_name", "bar", "--model", tv_model, "--imgsz", str(imgsz), "--tracker_weights", NEEDLE,
+               "--temporal_setting", "online", "--disable_long_term"]
+    video_launches, needle_mp4, needle_decoded = video_phase(smi, pipe, pipe_conf, clip, tv_argv, tv_frames, vconf,
+                                                             imgsz)
+    for k, n in video_launches.items():
+        launches[k] += n
+
+    # -- 3y. int8: one convolution, predict, serve, the int8 ring, the bench's int8 modes ---------------------
+    for k, n in int8_phase(smi, frames, needle_mp4, needle_decoded, serve_frames, pngs, queries, probs, track_frames,
+                           track_masks, conf=conf, imgsz=imgsz).items():
         launches[k] += n
 
     # -- 4. the same calls on the CPU ------------------------------------------------------

@@ -42,6 +42,7 @@ from yolo_puncture_tpu.track.core import TrackerCore as JaxTrackerCore
 from yolo_puncture_tpu.track.network import PropagationNetwork as JaxPropagationNetwork
 from yolo_puncture_tpu_torch import bench
 from yolo_puncture_tpu_torch.models.yolo import pyramid_channels_for
+from yolo_puncture_tpu_torch.nn.quant import freeze_int8_weights
 from yolo_puncture_tpu_torch.ops.masks import _first_axis
 from yolo_puncture_tpu_torch.ops.resize import resize_bilinear
 from yolo_puncture_tpu_torch.track import TrackerCore, build_bench_tracker, reference_tracker_geometry
@@ -56,6 +57,11 @@ BF16_PROB_TOL = 0.06
 # chain and keeps fp32 between fused operations where the port rounds each one,
 # so a few boundary pixels flip (tests/test_torch_bf16.py MASK_AGREE)
 MASK_AGREE = 0.995
+# the bf16 int8 head against JAX's, relative to JAX's own int8-versus-fp gap
+# (tests/test_torch_quant.py DIRECT; measured 1.08-1.2x at B 8)
+INT8_DIRECT = 2.0
+# and at least this times that gap from the port's own bf16 fp head (the int8 path ran)
+INT8_RAN = 0.5
 
 
 def _frames(n=B, seed=0):
@@ -198,22 +204,25 @@ class _HandOver:
         return to_torch(out)
 
 
-def _check_fused_step(shared: bool):
+def _check_fused_step(shared: bool, int8_mem: bool = False):
     """Two chained steps of B 8 through the port's ``bench.make_fused_step`` and
     ``bench.py``'s step body: the best slot's boxes, scores and valid flags
     exactly and its masks ≥ MASK_AGREE equal (the head's outputs, and for the
     shared tracker the pyramid, handed over), the bf16 tracker's id maps ≥
-    BF16_ID_AGREE equal, the ring's bookkeeping equal."""
+    BF16_ID_AGREE equal, the ring's bookkeeping equal.  ``int8_mem``: both
+    trackers with the int8 working ring (``BENCH_INT8=1``, ``--int8-mem``)."""
     weights = repo_path(SHARED_N_CHECKPOINT) if shared else _needle()
     pyramid_channels = pyramid_channels_for("v10", "n") if shared else None
     jcore = JaxTrackerCore(variables=weights, dtype=jnp.bfloat16, image_size=reference_tracker_geometry(
         FRAME_HW, MIN_SIDE), max_objects=2, mem_frames=8, mem_every=4, enable_long_term=False, affinity_bf16=True,
-        pyramid_adapter=shared, pyramid_channels=pyramid_channels or (128, 256, 512))
+        pyramid_adapter=shared, pyramid_channels=pyramid_channels or (128, 256, 512), quantized_memory=int8_mem)
     jmem = jcore.memory._replace(active=jcore.memory.active.at[0].set(True))
     # the tracker as bench_models builds it
     pmem, ptrack = build_bench_tracker(IMGSZ, dtype=torch.bfloat16, min_side=MIN_SIDE, window=4, frame_hw=FRAME_HW,
                                        variables=weights, device="cpu", max_objects=2, full_res_ids=True,
-                                       affinity_bf16=True, pyramid_channels=pyramid_channels)
+                                       affinity_bf16=True, pyramid_channels=pyramid_channels,
+                                       quantized_memory=int8_mem)
+    assert ptrack.core.quantized_memory == int8_mem and (pmem.keys.dtype == torch.int8) == int8_mem
     variables = _detector_variables()
     jstep = _jax_fused_step(JaxYOLOModel(version="v10", scale="n", nc=1, task="segment", dtype=jnp.bfloat16), jcore)
     jchk, pchk, n_valid = jnp.float32(0), torch.zeros(()), 0
@@ -249,6 +258,80 @@ def test_shared_fused_step_matches_jax_shared_step():
     YOLOv10n's pyramid (``tracker_shared_n_trained.msgpack``)
     (``_check_fused_step``)."""
     _check_fused_step(shared=True)
+
+
+def test_int8_mem_fused_step_matches_jax_fused_step(kernel_calls):
+    """``--int8-mem`` against ``BENCH_INT8=1``: both trackers with the int8 ring
+    (``_check_fused_step``); the readout wrapper is never called."""
+    _check_fused_step(shared=False, int8_mem=True)
+    assert kernel_calls["memory_readout"] == 0 and kernel_calls["decode_tail"] > 0
+
+
+class _Recorder(torch.nn.Module):
+    """The port's model, its outputs kept."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model, self.outs = model, []
+
+    def forward(self, x):
+        out = self.model(x)
+        self.outs.append(out)
+        return out
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_int8_det_step_matches_jax_det_step(static, monkeypatch):
+    """``--int8-det`` (and ``--int8-static``) against ``bench.py``'s ``det_step``
+    body under ``BENCH_INT8_DET=1`` (``BENCH_INT8_STATIC=1``), bf16 YOLOv10n at
+    B 8: the head's boxes and scores within ``INT8_DIRECT`` of JAX's int8 ones,
+    relative to JAX's own bf16 int8-versus-fp gap (XLA's bf16 arithmetic and
+    the int8 roundings it moves, ``tests/test_torch_quant.py``), and more than
+    ``INT8_RAN`` of that gap from the port's own bf16 step (so the step's
+    forward is an int8 one; the model built as ``bench_models`` builds it,
+    its int8 weights frozen from fp32 before the cast to bf16); the static
+    scales are the port's ``static_act_scales`` (the JAX calibration runs its
+    bf16 forward eagerly, which XLA's CPU backend cannot: a bf16 × bf16 → fp32
+    dot), with ``bench.py``'s frames and keys."""
+    from yolo_puncture_tpu.nn.quant import int8_convs as jax_int8_convs
+    from yolo_puncture_tpu_torch.models.yolo import YOLOModel
+    from yolo_puncture_tpu_torch.utils.convert import export_yolo_state_dict, load_yolo_state_dict
+
+    monkeypatch.setattr(bench, "FRAME_HW", FRAME_HW)
+    variables = _detector_variables()
+    jmodel = JaxYOLOModel(version="v10", scale="n", nc=1, task="segment", dtype=jnp.bfloat16)
+    pmodel = YOLOModel("v10", "n", 1, "segment")
+    load_yolo_state_dict(pmodel, export_yolo_state_dict(variables))
+    freeze_int8_weights(pmodel).cast(torch.bfloat16)
+    scales = bench.static_act_scales(pmodel.eval(), IMGSZ, "cpu") if static else None
+    if static:
+        assert len(scales) == 84 and all(v > 0 for v in scales.values())
+
+    def jax_det_step(int8):
+        @jax.jit
+        def det_step(v, frames_u8):
+            imgs, _, _ = jax_letterbox(frames_u8, IMGSZ, dtype=jnp.bfloat16, bgr_to_rgb=True)
+            with jax_int8_convs(int8, act_scales=scales):
+                out = jmodel.apply(v, imgs)
+            det = jax_select_detections(out, nms_free=True, conf_thres=0.02, max_det=8)
+            return det["valid"][:, 0], out["boxes"], out["probs"]
+        return det_step
+
+    frames = _frames()
+    j8, jfp = jax_det_step(True)(variables, jnp.asarray(frames)), jax_det_step(False)(variables, jnp.asarray(frames))
+    model = _Recorder(pmodel)
+    for int8 in (True, False):
+        out, _ = bench.make_fused_step(model, None, IMGSZ, int8=int8, act_scales=scales)(
+            None, torch.from_numpy(frames), 0.02, torch.zeros(()))
+        assert out["ids"] is None and out["mask"].dtype == torch.uint8 and np.isfinite(float(out["chk"]))
+    head, head_fp = model.outs
+    for k, ref8, reffp in (("boxes", j8[1], jfp[1]), ("probs", j8[2], jfp[2])):
+        gap = float(np.abs(np.asarray(ref8, np.float64) - np.asarray(reffp, np.float64)).mean())
+        err = float(np.abs(head[k].double().numpy() - np.asarray(ref8, np.float64)).mean())
+        ran = float(np.abs(head[k].double().numpy() - head_fp[k].double().numpy()).mean())
+        print(f"{'static' if static else 'dynamic'} {k}: JAX bf16 int8 vs fp {gap:.4g}, port vs JAX int8 "
+              f"{err / gap:.3f}x, port int8 vs port fp {ran / gap:.3f}x")
+        assert gap > 0 and err <= INT8_DIRECT * gap and ran > INT8_RAN * gap, k
 
 
 @pytest.mark.parametrize("version,imgsz", [("v10", (96, 64)), ("v11", (64, 128)), ("v8", (64, 64))])
@@ -392,7 +475,35 @@ def test_e2e_modes_run_on_the_cpu_at_a_toy_size(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--unfused", "--shared"], ["--unfused", "--long-term"], ["--unfused", "--no-track"],
-                                  ["--mode", "e2e", "--long-term"], ["--mode", "e2e_device", "--unfused"]])
+                                  ["--mode", "e2e", "--long-term"], ["--mode", "e2e_device", "--unfused"],
+                                  ["--int8-static"], ["--int8-mem", "--unfused"], ["--int8-mem", "--no-track"],
+                                  ["--mode", "e2e", "--int8-det"]])
 def test_bench_refuses_modes_that_do_not_combine(argv):
     with pytest.raises(SystemExit):
         bench.main(argv)
+
+
+@pytest.mark.parametrize("flags", [["--int8-det"], ["--int8-det", "--int8-static"], ["--int8-mem"],
+                                   ["--int8-det", "--int8-mem"]], ids=["int8-det", "static", "int8-mem", "both"])
+def test_bench_int8_modes_run_on_the_cpu_at_a_toy_size(flags, monkeypatch, kernel_calls, capsys):
+    """``main`` with the int8 flags at a toy size on the CPU: ``run_bench`` gets
+    the switches, the lines are printed, and under ``--int8-mem`` the readout
+    wrapper is never called."""
+    got = {}
+    real = bench.run_bench
+
+    def run_bench(*a, **k):
+        got.update(k)
+        return real(4, 2, 64, a[3], a[4], device="cpu", **{n: v for n, v in k.items() if n != "device"})
+
+    monkeypatch.setattr(bench, "FRAME_HW", FRAME_HW)
+    monkeypatch.setattr(bench, "MIN_SIDE", MIN_SIDE)
+    monkeypatch.setattr(bench, "run_bench", run_bench)
+    monkeypatch.setattr(bench.subprocess, "run", lambda *a, **k: type("R", (), {"stdout": "card, 700 W"})())
+    assert bench.main(flags) == 0
+    mem, det, static = ("--int8-mem" in flags), ("--int8-det" in flags), ("--int8-static" in flags)
+    assert (got["int8_mem"], got["int8_det"], got["int8_static"]) == (mem, det, static)
+    out, err = capsys.readouterr()
+    assert out.splitlines()[-1].startswith('{"metric": "frames/sec/chip at 640x640 (YOLOv10-S seg+DEVA)"')
+    assert ("# static int8: 84 calibrated conv scales" in err) == static
+    assert (kernel_calls["memory_readout"] == 0) == mem and kernel_calls["decode_tail"] > 0

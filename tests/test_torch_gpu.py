@@ -3,7 +3,9 @@
 against the same code on the CPU; the backward of the tracker's two kernels
 (``MemoryReadout``, ``DecodeTail``) against their CPU path and float64; the
 fine-tuners, ``yolo_cli calibrate`` / ``export`` and the bench's other modes
-(``chip_smoke.py`` phases 3t–3w at reduced sizes).
+(``chip_smoke.py`` phases 3t–3w at reduced sizes); the int8 convolution, int8
+``predict`` and the int8-ring tracker against their CPU runs (phase 3y (a), (b),
+(d) at reduced sizes).
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -22,6 +24,7 @@ import torch
 # shadow ``tests.torch_parity``.  chip_smoke.py lies at the repository's root, where
 # ``python -m pytest`` is run from; it holds every kernel's cases, inputs and limits.
 from chip_smoke import (
+    INT8_SCALE_REL,
     NEEDLE,
     PROTO_CASES,
     READOUT_AFFINITY_CASES,
@@ -35,6 +38,10 @@ from chip_smoke import (
     bench_modes_phase,
     calibrate_phase,
     check_decode_tail_case,
+    check_int8_conv,
+    check_int8_distance,
+    check_int8_heads,
+    check_int8_layers,
     check_proto_decode_case,
     check_pipeline_step,
     check_readout_affinity_case,
@@ -44,6 +51,8 @@ from chip_smoke import (
     check_tail_grad_case,
     export_phase,
     finetune_phase,
+    int8_distance,
+    int8_heads,
     needle_clip,
     needle_network,
     pipeline_conf,
@@ -375,3 +384,77 @@ def test_bench_modes_on_the_card(cuda):
     got = bench_modes_phase("gpu test", 640, batch=8, iters=2, e2e_batch=8, e2e_iters=2, e2e_device_iters=2,
                             device=cuda)
     assert got["proto_decode_bf16"] > 0 and got["memory_readout_bf16"] > 0 and got["decode_tail_bf16"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 16, 64, 64, 32, 3, 2), (1, 3, 96, 96, 16, 3, 2), (3, 24, 20, 20, 40, 1, 1)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_int8_conv_on_the_card_matches_the_cpu(cuda, case):
+    """3y (a) at small shapes (a 3×3 stride-2, the first layer's K = 27, a 1×1):
+    the int8 operands equal the CPU's, the int32 product equals a float64
+    convolution of them, the output within ``INT8_OUT_REL`` of the CPU's."""
+    out = check_int8_conv(cuda, case=case)
+    assert out["max_rel_err"] <= 1e-6 and out["ms"]["int8"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_int8_predict_on_the_card_matches_the_cpu(cuda, dtype):
+    """3y (b) at small size (YOLOv10n at 128², two frames): ``predict`` with
+    dynamic scales, then after ``calibrate_int8`` (its scales within
+    ``INT8_SCALE_REL`` of the CPU's, the card's run on both sides); every int8
+    convolution on its card input against the CPU's (``check_int8_layers``); the
+    head over every anchor (``check_int8_heads``) and the detections
+    (``check_int8_distance``) against the CPU within ``INT8_DIRECT`` times the
+    CPU's int8-versus-fp gap (the detections: or the fp tolerances)."""
+    from yolo_puncture_tpu_torch import YOLO
+
+    frames, _, _ = needle_clip(2, 96, 160, 1, seed=3)
+    kw = dict(conf=0.0, imgsz=128)
+    fp = YOLO("yolo10n-seg", nc=1, seed=2, dtype=dtype, max_det=20, device=cuda)
+    q8 = YOLO("yolo10n-seg", nc=1, seed=2, dtype=dtype, max_det=20, int8_serving=True, device=cuda)
+    cpu = YOLO("yolo10n-seg", nc=1, seed=2, dtype=dtype, max_det=20, int8_serving=True, device="cpu")
+    ref = fp.predict(list(frames), **kw)
+    for calibrate in (False, True):
+        if calibrate:
+            scales, cpu_scales = q8.calibrate_int8(list(frames), imgsz=128), cpu.calibrate_int8(list(frames), imgsz=128)
+            assert set(scales) == set(cpu_scales)
+            assert max(abs(scales[k] - cpu_scales[k]) / cpu_scales[k] for k in scales) <= INT8_SCALE_REL[dtype]
+            cpu._act_scales = dict(scales)
+        before = proto_decode.launches_bf16 if dtype == torch.bfloat16 else proto_decode.launches
+        got = q8.predict(list(frames), **kw)
+        after = proto_decode.launches_bf16 if dtype == torch.bfloat16 else proto_decode.launches
+        assert after > before and len(got) == len(ref) == 2
+        assert check_int8_layers(q8, cpu, frames, 128)["convolutions"] == 72
+        check_int8_heads("int8 head on the card", int8_heads(q8, frames, 128), int8_heads(cpu, frames, 128),
+                         int8_heads(fp, frames, 128))
+        cpu_got = cpu.predict(list(frames), **kw)
+        check_int8_distance("int8 predict on the card", int8_distance(got, cpu_got), int8_distance(cpu_got, ref))
+
+
+@pytest.mark.gpu
+def test_int8_ring_tracker_on_the_card_matches_the_cpu(cuda):
+    """3y (d) at small size: the int8-ring tracker (64×96, the needle checkpoint)
+    over a detection, three steps and a window on the card and on the CPU:
+    probabilities within 1e-3, the readout kernel never launched, the tail
+    launched."""
+    from yolo_puncture_tpu_torch.track import ObjectInfo, TrackerCore
+
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 60, (9, 64, 96, 3)).astype(np.uint8)
+    for i in range(9):
+        frames[i, 20:32, 10 + 2 * i:42 + 2 * i] = 230
+    mask = np.zeros((64, 96), np.int32)
+    mask[20:32, 10:42] = 1
+    geo = dict(image_size=(64, 96), max_objects=3, mem_frames=4, mem_every=2, enable_long_term=False,
+               quantized_memory=True, variables=NEEDLE)
+    gpu, cpu = TrackerCore(**geo), TrackerCore(device="cpu", **geo)
+    counts = (memory_readout.launches, decode_tail.launches)
+    out = {}
+    for core in (gpu, cpu):
+        probs = [core.incorporate_detection(frames[0], mask, [ObjectInfo(id=1)])]
+        probs += [core.step(f) for f in frames[1:4]]
+        out[core] = np.stack(probs + list(core.step_batch(list(frames[4:9]))))
+    assert memory_readout.launches == counts[0] and decode_tail.launches > counts[1]
+    np.testing.assert_allclose(out[gpu], out[cpu], rtol=0, atol=1e-3)
+    assert gpu.memory.keys.dtype == torch.int8 and gpu.memory.write_pos == cpu.memory.write_pos

@@ -116,5 +116,45 @@ def test_cuda_is_the_default_device():
     else:
         with pytest.raises(RuntimeError):
             YOLO("yolo10n-seg")
-    with pytest.raises(NotImplementedError):
-        YOLO("yolo10n-seg", device="cpu", int8_serving=True)
+    q8 = YOLO("yolo10n-seg", device="cpu", int8_serving=True)           # int8 serving is ported
+    assert q8.int8_serving and q8._act_scales is None and q8.device.type == "cpu"
+
+
+def _matched_mean_err(got, ref):
+    """Mean abs difference of two sets of boxes (N, 4) after pairing them up by
+    least total L1 distance (the order of nearly equal scores may differ)."""
+    from scipy.optimize import linear_sum_assignment
+
+    cost = np.abs(got[:, None, :] - ref[None, :, :]).sum(-1)
+    r, c = linear_sum_assignment(cost)
+    return float(np.abs(got[r] - ref[c]).mean())
+
+
+@pytest.mark.parametrize("calibrate", [False, True], ids=["dynamic", "calibrate_int8"])
+def test_int8_predict_matches_jax(calibrate, monkeypatch):
+    """``YOLO(int8_serving=True).predict`` (dynamic scales, then after
+    ``calibrate_int8``) against the JAX predictor's: the same detection counts;
+    the scales equal to JAX's within 1e-6; boxes and sorted scores held as
+    ``tests/test_torch_quant.py`` holds the heads, within ``DIRECT`` times JAX's
+    own int8-versus-fp32 gap (mean abs, the boxes paired up), and the boxes more
+    than half that gap from the port's own fp32 predict (an int8 forward ran)."""
+    jdet, pdet = _pair("v10", 32, monkeypatch)
+    jq8 = JaxYOLO(NAMES["v10"], nc=1, max_det=20, max_masks=32, int8_serving=True)
+    frames = _frames()
+    kw = dict(conf=0.0, imgsz=64, iou=1.0)
+    fp = pdet.predict(list(frames), **kw)
+    pdet.int8_serving = True
+    if calibrate:
+        js, ps = jq8.calibrate_int8(list(frames), imgsz=64), pdet.calibrate_int8(list(frames), imgsz=64)
+        assert set(ps) == set(js) and max(abs(ps[k] - js[k]) / js[k] for k in js) <= 1e-6
+    ref32, ref8, got = jdet.predict(list(frames), **kw), jq8.predict(list(frames), **kw), pdet.predict(list(frames), **kw)
+    for g, r8, r32, f in zip(got, ref8, ref32, fp):
+        assert len(g.boxes) == len(r8.boxes) == len(r32.boxes) == len(f.boxes) > 0
+        gap_b, err_b = _matched_mean_err(r8.boxes.xyxy, r32.boxes.xyxy), _matched_mean_err(g.boxes.xyxy, r8.boxes.xyxy)
+        ran_b = _matched_mean_err(g.boxes.xyxy, f.boxes.xyxy)
+        s8, s32, sg = (np.sort(r.boxes.conf) for r in (r8, r32, g))
+        gap_s, err_s = float(np.abs(s8 - s32).mean()), float(np.abs(sg - s8).mean())
+        print(f"boxes {err_b:.4g} px against a gap of {gap_b:.4g} (port int8 vs fp32 {ran_b:.4g}); "
+              f"scores {err_s:.4g} against {gap_s:.4g}")
+        assert err_b <= 2.0 * max(gap_b, 1e-6) and err_s <= 2.0 * max(gap_s, 1e-9) and ran_b > 0.5 * gap_b > 0
+        assert g.masks.data.shape == r8.masks.data.shape

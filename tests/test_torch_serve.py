@@ -37,6 +37,7 @@ IMGSZ, HW = 64, (48, 80)
 BOX_TOL, CONF_TOL = 0.01 + 1e-5, 1e-4 + 1e-7
 POLY_AREA_AGREE, POLY_EQUAL = 0.999, 0.9
 CONF = 0.05
+INT8_SCALE_REL = 1e-4     # the calibrated int8 scales (test_main_serves_int8_after_calib_dir)
 
 
 def _frames(n, seed):
@@ -187,9 +188,52 @@ def test_pad_pow2(n, cap):
     assert _pad_pow2(n, cap) == min(1 << max(n - 1, 0).bit_length(), cap)
 
 
-def test_main_keeps_the_int8_flag_and_raises():
+def test_main_serves_int8_after_calib_dir(tmp_path, capsys):
+    """``serve --int8 --calib_dir DIR`` (``make_server``, which ``main`` starts)
+    against the JAX server that the JAX ``main`` builds from the same flags: the
+    same calibration line, the same keys, each scale within ``INT8_SCALE_REL`` of
+    JAX's, and the same uploads answered with the same JSON within a rounding
+    step once the port serves JAX's scales.  (Each package's own scales differ
+    in the last digits, where this seeded network's fp32 activations do, up to
+    1.2e-5; a static scale one ulp off moves int8 operands that sit on a
+    rounding tie, and through the network scores move by up to 0.055, as far as
+    int8 moves them from fp32: ``tests/test_torch_quant.py``.)"""
+    from flax import serialization
+
+    from apps.serve import Server as JaxServer
+    from yolo_puncture_tpu.predict import YOLO as JaxYOLO
     from yolo_puncture_tpu_torch.apps import serve
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        serve.main(["--int8", "--weights", "yolo10n-seg", "--port", "0"], device="cpu")
+    path = tmp_path / "yolo10n-seg.msgpack"
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes(seeded_detector_variables("v10", _frames(8, 0), IMGSZ)))
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    for i, frame in enumerate(_frames(3, seed=4)):
+        cv2.imwrite(str(calib / f"c{i}.png"), frame)
+    psrv, args = serve.make_server(["--int8", "--calib_dir", str(calib), "--weights", str(path), "--host",
+                                    "127.0.0.1", "--port", "0", "--imgsz", str(IMGSZ), "--max_batch", "4"],
+                                   device="cpu")
+    line = capsys.readouterr().out.strip()
+    jdet = JaxYOLO(str(path), nc=1, int8_serving=True)
+    scales = jdet.calibrate_int8(str(calib), imgsz=IMGSZ)
+    assert line == f"int8 calibration: {len(scales)} conv scales frozen from {calib}"
+    pscales = psrv.batcher.model._act_scales
+    assert psrv.batcher.model.int8_serving and set(pscales) == set(scales)
+    assert max(abs(pscales[k] - scales[k]) / scales[k] for k in scales) <= INT8_SCALE_REL
+    psrv.batcher.model._act_scales = {k: float(v) for k, v in scales.items()}
+    jsrv = JaxServer(jdet, imgsz=IMGSZ, max_batch=4, window_ms=1.0).start()
+    psrv.start()
+    try:
+        n_boxes = 0
+        for frame in _frames(2, seed=1):
+            for query in (f"?conf={CONF}", f"?conf={CONF}&retina=1"):
+                (jc, ref), (pc, got) = _post(jsrv, _png(frame), query), _post(psrv, _png(frame), query)
+                assert jc == pc == 200, (ref, got)
+                _same_json(got, ref)
+                n_boxes += len(ref["boxes"])
+        assert n_boxes > 0
+    finally:
+        jsrv.stop()
+        psrv.stop()
     assert torch.get_num_threads() == 1

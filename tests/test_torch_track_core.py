@@ -111,6 +111,45 @@ def test_exact_windowed_matches_per_frame(long_term):
     assert torch.equal(b.memory.valid, a.memory.valid) and torch.equal(b.memory.lt_valid, a.memory.lt_valid)
 
 
+def test_int8_ring_tracker_matches_jax():
+    """``quantized_memory=True`` with the needle checkpoint: ``incorporate_detection``,
+    5× ``step``, ``step_batch`` (two exact windows and a trailing frame) and exact
+    ``propagate_frames`` against the JAX int8-ring ``TrackerCore``: probabilities
+    1e-3, ids ≥ 99.9 %, the ring's bookkeeping equal, and the readout kernel's
+    wrapper never called (the dense int8 readout reads the ring)."""
+    from yolo_puncture_tpu_torch.track import core as tcore
+
+    calls = []
+    real = tcore.memory_readout_kernel
+    tcore.memory_readout_kernel = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        j, t = _pair(repo_path(NEEDLE_CHECKPOINT), False, quantized_memory=True)
+        frames, mask = bar_clip(13, H, W, seed=4)
+        _assert_same_probs(t.incorporate_detection(frames[0], mask, [tc.ObjectInfo(id=1)]),
+                           j.incorporate_detection(frames[0], mask, [jc.ObjectInfo(id=1)]))
+        for i in range(1, 6):
+            _assert_same_probs(t.step(frames[i]), j.step(frames[i]))
+            _assert_same_state(t, j)
+        _assert_same_probs(t.step_batch(list(frames[6:11])), j.step_batch(list(frames[6:11])))
+        _assert_same_state(t, j)
+        assert t.memory.keys.dtype == torch.int8 and int(t.memory.valid.sum()) > 1
+        np.testing.assert_allclose(t.memory.usage.numpy(), np.asarray(j.memory.usage), rtol=0, atol=1e-3)
+        # exact windows of mem_every through propagate_frames, from the same memory
+        timgs = torch.stack([t._prep_image(f) for f in frames[9:13]])
+        jimgs = jnp.stack([j._prep_image(f) for f in frames[9:13]])
+        with torch.no_grad():
+            tkeys, tskips = t.net.encode_key(timgs)
+            tmem, tout = t.propagate_frames(t.memory, tkeys, tskips, 2, exact=True, return_logits=True)
+        jkeys, jskips = j.net.apply(j.variables, jimgs, method=jc.PropagationNetwork.encode_key)
+        jmem, jout = j.propagate_frames(j.variables, j.memory, jkeys, jskips, 2, exact=True, return_logits=True)
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0, atol=2e-3)
+        assert tmem.write_pos == int(jmem.write_pos) and tmem.frame_idx == int(jmem.frame_idx)
+        np.testing.assert_allclose(tmem.k_scale.numpy(), np.asarray(jmem.k_scale), rtol=1e-5, atol=0)
+    finally:
+        tcore.memory_readout_kernel = real
+    assert calls == []
+
+
 def test_inexact_windows_and_propagate_frames_match_jax():
     """The legacy window approximation (``exact_windows`` off through the config
     dict) and the three return forms of ``propagate_frames``."""
@@ -266,8 +305,12 @@ def test_constructor_contract():
             tc.TrackerCore(image_size=(H, W))
     for align in ("propagate", "affinity"):                          # ported: accepted, as in the JAX package
         assert tc.TrackerCore(image_size=(H, W), config={"align_voting": align}, device="cpu").config["align_voting"]
-    with pytest.raises(NotImplementedError):
-        tc.TrackerCore(image_size=(H, W), quantized_memory=True, enable_long_term=False, device="cpu")
+    q8 = tc.TrackerCore(image_size=(H, W), quantized_memory=True, enable_long_term=False, device="cpu")
+    assert q8.quantized_memory and q8.memory.keys.dtype == torch.int8              # the int8 ring is ported
+    assert tc.TrackerCore(image_size=(H, W), config={"quantized_memory": True, "enable_long_term": False},
+                          device="cpu").quantized_memory
+    with pytest.raises(ValueError, match="quantized_memory requires enable_long_term=False"):
+        tc.TrackerCore(image_size=(H, W), quantized_memory=True, device="cpu")        # long-term on by default
     with pytest.raises(ValueError):
         tc.TrackerCore(image_size=(H, W), max_objects=2, mem_frames=4, device="cpu",
                        config={"num_prototypes": 24, "max_long_term_elements": 16})

@@ -35,8 +35,31 @@ def test_init_memory_and_engaged():
     _assert_same(ts, js)
     assert ts.keys.shape == (T, HW, 64) and ts.values.shape == (NO, T, HW, CV)
     assert tm.engaged(ts) is False and not bool(jm.engaged(js))
-    with pytest.raises(NotImplementedError):
-        tm.init_memory(H16, W16, NO, T, quantized=True)
+    tq, jq = tm.init_memory(H16, W16, NO, T, quantized=True), jm.init_memory(H16, W16, NO, T, quantized=True)
+    _assert_same(tq, jq)                                     # the int8 ring is ported
+    assert tq.keys.dtype == tq.values.dtype == torch.int8 and tq.lt_keys.dtype == torch.float32
+    assert tq.k_scale.shape == (T,) and tq.v_scale.shape == (NO, T)
+
+
+def test_write_memory_int8_ring_equals_jax_bit_for_bit():
+    """The int8 ring and its scales after writes past the wrap: equal to the
+    jitted JAX ``write_memory`` (as ``TrackerCore`` runs it) bit for bit, one
+    object's value all zeros (its scale floored at 1e-8)."""
+    import jax
+
+    ts, js = tm.init_memory(H16, W16, NO, T, quantized=True), jm.init_memory(H16, W16, NO, T, quantized=True)
+    jwrite = jax.jit(jm.write_memory)
+    rng = np.random.default_rng(2)
+    for i in range(T + 2):
+        key = (rng.standard_normal((HW, 64)) * (i + 1)).astype(np.float32)
+        val = rng.standard_normal((NO, HW, CV)).astype(np.float32)
+        val[1] *= 0.0 if i == 1 else 3.0
+        ts = tm.write_memory(ts, torch.from_numpy(key), torch.from_numpy(val))
+        js = jwrite(js, jnp.asarray(key), jnp.asarray(val), jnp.asarray(True))
+        _assert_same(ts, js)
+        np.testing.assert_array_equal(ts.k_scale.numpy(), np.asarray(js.k_scale))
+        np.testing.assert_array_equal(ts.v_scale.numpy(), np.asarray(js.v_scale))
+    assert ts.keys.dtype == torch.int8 and int(ts.keys.abs().max()) == 127
 
 
 def test_write_memory_wraps_the_ring():

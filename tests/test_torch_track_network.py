@@ -184,6 +184,67 @@ def test_memory_readout_dense(affinity_bf16, return_usage, all_invalid):
         assert (got.numpy() == 0).all()
 
 
+def _int8_ring(seed, T, HW, No, Cv, Q, valid):
+    """``tests/test_track.py``'s int8 readout inputs: a ring quantised per slot
+    (keys) and per (object, slot) (values), a query and the slots' validity."""
+    rng = _rng(seed)
+    keys = rng.normal(size=(T, HW, 64)).astype(np.float32)
+    vals = rng.normal(size=(No, T, HW, Cv)).astype(np.float32)
+    q = rng.normal(size=(Q, 64)).astype(np.float32)
+    ks = (np.abs(keys).max(axis=(1, 2)) / 127.0).astype(np.float32)
+    ki8 = np.clip(np.round(keys / np.maximum(ks, 1e-8)[:, None, None]), -127, 127).astype(np.int8)
+    vs = (np.abs(vals).max(axis=(2, 3)) / 127.0).astype(np.float32)
+    vi8 = np.clip(np.round(vals / np.maximum(vs, 1e-8)[:, :, None, None]), -127, 127).astype(np.int8)
+    return q, ki8, ks, vi8, vs, np.asarray(valid)
+
+
+@pytest.mark.parametrize("shape", [(3, 24, 2, 32, 24, (True, True, False)), (4, 405, 2, 128, 405, (True,) * 3 + (False,)),
+                                   (2, 405, 1, 128, 16, (False, False))],
+                         ids=["test_track", "quality_hw405", "all_invalid"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_memory_readout_dense_int8(shape, out_dtype, monkeypatch):
+    """Against the jitted JAX ``memory_readout_dense_int8``: the int32 parts (the
+    affinity product and each slot's value product) exactly, the readout and the
+    usage within 1e-6 of their largest values."""
+    from yolo_puncture_tpu_torch.nn import quant
+
+    T, HW, No, Cv, Q, valid = shape
+    args = _int8_ring(14, T, HW, No, Cv, Q, valid)
+    jdt, tdt = (jnp.float32, torch.float32) if out_dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    products = []
+    real = quant.int_mm
+
+    def spy(a, b):
+        y = real(a, b)
+        products.append((a, b, y))
+        return y
+
+    monkeypatch.setattr(tn, "int_mm", spy)
+    got, got_usage = tn.memory_readout_dense_int8(*map(torch.from_numpy, args), out_dtype=tdt, return_usage=True)
+    ref, ref_usage = jax.jit(jn.memory_readout_dense_int8, static_argnames=("out_dtype", "return_usage"))(
+        *map(jnp.asarray, args), out_dtype=jdt, return_usage=True)
+    assert got.dtype == tdt and got.shape == (No, Q, Cv) and got_usage.shape == (T, HW)
+    # the int32 parts, from the JAX function's own int8 operands
+    q, ki8 = args[0], args[1]
+    (a, b, aff), *values = products
+    sq = np.float32(max(np.abs(q).max(), 1e-8)) * np.float32(quant.RCP127)
+    qi8 = np.clip(np.round(q / sq), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(a.numpy(), qi8)
+    np.testing.assert_array_equal(aff.numpy(), np.asarray(jnp.einsum(
+        "qc,thc->qth", qi8, args[1], preferred_element_type=jnp.int32)).reshape(Q, T * HW))
+    assert len(values) == T
+    for t, (pi8, _, out_t) in enumerate(values):
+        ref_t = np.einsum("qh,nhc->qnc", pi8.numpy().astype(np.int64), args[3][:, t].astype(np.int64))
+        np.testing.assert_array_equal(out_t.numpy(), ref_t.reshape(Q, No * Cv))
+    g, r = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    tol = 1e-6 if out_dtype == "float32" else 2.0 ** -8
+    assert np.abs(g - r).max() <= tol * max(np.abs(r).max(), 1e-30)
+    gu, ru = got_usage.numpy(), np.asarray(ref_usage)
+    assert np.abs(gu - ru).max() <= 1e-6 * max(np.abs(ru).max(), 1e-30)
+    if not any(valid):
+        assert (g == 0).all() and (gu == 0).all()
+
+
 def test_depth_to_space2():
     y = _rng(13).standard_normal((2, 3, 5, 4 * 6)).astype(np.float32)
     np.testing.assert_array_equal(tn._depth_to_space2(torch.from_numpy(y), 6).numpy(),

@@ -10,7 +10,9 @@ tool's bench-exact row (bf16) cannot run in XLA's CPU backend (its bf16 logits
 upsample outside a compiled program needs a bf16 × bf16 → fp32 dot, which that
 backend lacks); ``docs/tracker_quality.md`` records it at the base row's IoU
 (0.662 both), and the port's bench-exact row (bf16, ``affinity_bf16``, exact
-windows of 4) is held within ``BENCH_EXACT_TOL`` of the tool's base row.
+windows of 4) is held within ``BENCH_EXACT_TOL`` of the tool's base row.  The
+"int8 memory" row (the int8 working ring) matches the tool's per frame within
+1e-3 IoU, as the base row does.
 """
 
 import numpy as np
@@ -49,7 +51,7 @@ def test_protocol_clips_are_the_tools_mix():
         np.testing.assert_array_equal(gm, rm)
 
 
-def _jax_ious(row, clips, monkeypatch, **kw):
+def _jax_ious(row, clips, monkeypatch, quantized_memory=False, **kw):
     """The tool's ``eval_config`` for the fp32 ``row``, its per-object IoUs recorded."""
     import jax.numpy as jnp
 
@@ -63,7 +65,7 @@ def _jax_ious(row, clips, monkeypatch, **kw):
 
     monkeypatch.setattr(etq, "_iou", recording)
     core = JaxTrackerCore(variables=quality.WEIGHTS, image_size=(H, W), max_objects=2, mem_frames=8, mem_every=4,
-                          enable_long_term=False, dtype=jnp.float32)
+                          enable_long_term=False, dtype=jnp.float32, quantized_memory=quantized_memory)
     mean = etq.eval_config(row, core, clips, **kw)
     return [v for v in seen if not np.isnan(v)], mean
 
@@ -72,6 +74,19 @@ def test_base_row_per_frame_iou_matches_the_tool(monkeypatch):
     clips = quality.protocol_clips(N_CLIPS, T, H, W)
     ref, ref_mean = _jax_ious("base (per-frame, fp32)", clips, monkeypatch)
     got = quality.eval_config(quality.row_tracker("base (per-frame, fp32)", (H, W), device="cpu"), clips)
+    assert len(got) == len(ref) >= N_CLIPS * (T - 1)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=IOU_ATOL)
+    assert abs(np.mean(got) - ref_mean) <= IOU_ATOL
+
+
+def test_int8_row_per_frame_iou_matches_the_tool(monkeypatch):
+    """The "int8 memory" row (the base row's tracker with the int8 ring) against the
+    tool's, frame by frame, within 1e-3 IoU."""
+    clips = quality.protocol_clips(N_CLIPS, T, H, W)
+    ref, ref_mean = _jax_ious("int8 memory", clips, monkeypatch, quantized_memory=True)
+    core = quality.row_tracker("int8 memory", (H, W), device="cpu")
+    assert core.quantized_memory and str(core.memory.keys.dtype) == "torch.int8"
+    got = quality.eval_config(core, clips)
     assert len(got) == len(ref) >= N_CLIPS * (T - 1)
     np.testing.assert_allclose(got, ref, rtol=0, atol=IOU_ATOL)
     assert abs(np.mean(got) - ref_mean) <= IOU_ATOL
@@ -87,7 +102,10 @@ def test_bench_exact_row_mean_iou_is_the_tools_base_row(monkeypatch):
 
 
 def test_run_protocol_reports_both_rows():
+    """Every row of ``JAX_MEAN_IOU`` (the two of earlier and "int8 memory"), each
+    with the JAX package's figure from ``docs/tracker_quality.md``."""
     res = quality.run_protocol(1, 5, 32, 48, device="cpu")
-    assert set(res) == {"base (per-frame, fp32)", "bench-exact"}
-    for row in res.values():
-        assert 0.0 <= row["mean_iou"] <= 1.0 and row["n"] > 0 and row["jax_mean_iou"] == 0.662
+    assert set(res) == {"base (per-frame, fp32)", "bench-exact", "int8 memory"}
+    for name, row in res.items():
+        assert 0.0 <= row["mean_iou"] <= 1.0 and row["n"] > 0
+        assert row["jax_mean_iou"] == (0.663 if name == "int8 memory" else 0.662)

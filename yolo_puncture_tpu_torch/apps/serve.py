@@ -24,9 +24,15 @@ The JAX server's surface, on the standard library's ``http.server``:
     server runs; other formats by ``cv2.imdecode`` where cv2 is installed;
     bytes that neither reads get 400 ``could not decode image``.
 
-``--int8`` keeps the JAX server's flag: int8 serving is not ported, and
-``YOLO(int8_serving=True)`` raises.  ``Server(model=None, device=None)`` and
-``main(argv, device=None)`` run on the card unless ``device="cpu"``.
+``--int8`` serves ``YOLO(int8_serving=True)`` (``nn/quant.py``: int8
+convolutions); with ``--calib_dir DIR`` the images of ``DIR`` calibrate static
+activation scales first (``YOLO.calibrate_int8``) and the JAX server's line says
+how many.  With dynamic scales a request's boxes depend on the other requests
+of its padded batch (the padding copies the last frame, which leaves an
+abs-max as it was, but the other frames do not), as on the JAX server, whose
+grouping this one keeps.  ``Server(model=None, device=None)``, ``make_server(argv,
+device=None)`` and ``main(argv, device=None)`` run on the card unless
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -259,7 +265,9 @@ class Server:
         self.batcher.join(timeout=60)
 
 
-def main(argv=None, device=None):
+def make_server(argv=None, device=None):
+    """``main``'s flags → (its ``Server``, not started, and the flags), the model
+    built and, with ``--int8 --calib_dir``, calibrated."""
     p = argparse.ArgumentParser(description="detector serving")
     p.add_argument("--weights", default="yolo10s-seg")
     p.add_argument("--nc", type=int, default=1)
@@ -268,16 +276,26 @@ def main(argv=None, device=None):
     p.add_argument("--imgsz", type=int, default=640)
     p.add_argument("--max_batch", type=int, default=16)
     p.add_argument("--window_ms", type=float, default=5.0)
-    p.add_argument("--int8", action="store_true", help="int8 conv serving path (not ported: raises)")
+    p.add_argument("--int8", action="store_true", help="int8 conv serving path")
     p.add_argument("--calib_dir", default=None,
-                   help="directory of representative frames for int8 calibration (with --int8)")
+                   help="directory of representative frames: calibrate static "
+                        "int8 activation scales (PTQ) before serving")
     args = p.parse_args(argv)
 
     from yolo_puncture_tpu_torch import YOLO
 
     model = YOLO(args.weights, nc=args.nc, int8_serving=args.int8, device=device)
+    if args.int8 and args.calib_dir:
+        scales = model.calibrate_int8(args.calib_dir, imgsz=args.imgsz)
+        print(f"int8 calibration: {len(scales)} conv scales frozen "
+              f"from {args.calib_dir}", flush=True)
     server = Server(model, host=args.host, port=args.port, imgsz=args.imgsz,
                     max_batch=args.max_batch, window_ms=args.window_ms)
+    return server, args
+
+
+def main(argv=None, device=None):
+    server, args = make_server(argv, device)
     server.start()
     print(f"serving {args.weights} on {args.host}:{server.port} "
           f"(imgsz={args.imgsz}, max_batch={args.max_batch})", flush=True)

@@ -3,6 +3,7 @@
 
     python -m yolo_puncture_tpu_torch.bench [--batch 128] [--iters 10] [--imgsz 640]
                                             [--no-track | --shared] [--long-term] [--unfused] [--trace DIR]
+                                            [--int8-det [--int8-static]] [--int8-mem]
     python -m yolo_puncture_tpu_torch.bench --mode e2e [--batch 32] [--iters 8]
     python -m yolo_puncture_tpu_torch.bench --mode e2e_device [--batch 32] [--iters 10]
 
@@ -33,6 +34,19 @@ seg+track step.  One step takes a batch of B seeded BGR frames of 720×1280
     ``pyramid_channels``), and the frames are not resized for it;
   * a checksum folded from the step's boxes, scores, valid flags, masks and ids,
     carried into the next step, so that every step depends on the one before.
+
+int8 (``tools/bench_matrix.py``'s three int8 rows): ``--int8-det``
+(``bench.py``'s ``BENCH_INT8_DET=1``) runs the detector's forward under
+``nn/quant.py int8_convs``, in the fused and the unfused step, with dynamic
+activation scales (the int8 weights frozen from the fp32 init), or with
+``--int8-static``
+(``BENCH_INT8_STATIC=1``) with static ones from ``collect_act_scales(...,
+percentile=100)`` over one letterboxed bf16 batch of
+``default_rng(7).integers(0, 255, (4, 720, 1280, 3))`` (a
+``# static int8: N calibrated conv scales`` line on stderr); ``--int8-mem``
+(``BENCH_INT8=1``) gives the fused step's tracker the int8 working ring, read by
+``network.memory_readout_dense_int8``: the ``memory_readout`` kernel does not run
+there.  A path that cannot be built raises.
 
 ``--long-term`` (``BENCH_LT=1``) builds that tracker with long-term memory on:
 its readout is then the dense PyTorch one, which returns the attention usage
@@ -65,9 +79,6 @@ iteration's checksum so that the iterations form one chain, with one fetch at
 the end.  Both print ``bench.py``'s line for their mode.
 
 What of ``bench.py`` is not here, and why:
-  * the switches that select modules the port has not ported: int8 convolutions
-    (``BENCH_INT8_DET``, ``BENCH_INT8_STATIC``) and the int8 memory ring
-    (``BENCH_INT8``), which wait for ROADMAP item 12a;
   * ``bench.py``'s fallback to the detector alone when the tracker cannot be
     built: here a failure raises and the run exits non-zero;
   * the switches that select what the port's step is by construction: the
@@ -96,6 +107,7 @@ import numpy as np
 import torch
 
 from yolo_puncture_tpu_torch.models.yolo import YOLOModel, pyramid_channels_for
+from yolo_puncture_tpu_torch.nn.quant import collect_act_scales, freeze_int8_weights, int8_convs
 from yolo_puncture_tpu_torch.ops.letterbox import letterbox
 from yolo_puncture_tpu_torch.ops.masks import decode_masks
 from yolo_puncture_tpu_torch.ops.nms import select_detections
@@ -110,33 +122,49 @@ WINDOW = 4
 
 
 def bench_models(imgsz: int = 640, track: bool = True, device=None, shared: bool = False, fused: bool = True,
-                 long_term: bool = False):
+                 long_term: bool = False, int8_mem: bool = False, int8_det: bool = False):
     """The bench's detector (YOLOv10-S seg, bf16, seeded) and tracker
     (``build_bench_tracker``'s (initial memory, step) in bf16, or None without
     ``track``), on ``device`` (the card unless it says "cpu").  The fused step's
     tracker has two slots, ids at full resolution and ``affinity_bf16``; with
     ``shared`` it reads the detector's pyramid, with ``long_term`` it keeps
-    long-term memory.  Unfused, the tracker is ``build_bench_tracker``'s with
-    its defaults, as ``bench.py``'s ``BENCH_FUSED=0`` builds it."""
+    long-term memory, with ``int8_mem`` the int8 working ring.  Unfused, the
+    tracker is ``build_bench_tracker``'s with its defaults, as ``bench.py``'s
+    ``BENCH_FUSED=0`` builds it.  With ``int8_det`` the detector's int8 weights
+    are frozen from its fp32 init before the cast to bf16."""
     dev = resolve_device(device)
-    model = YOLOModel("v10", "s", nc=1, task="segment", dtype=torch.bfloat16)
+    model = YOLOModel("v10", "s", nc=1, task="segment", dtype=torch.float32 if int8_det else torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(0))
+    if int8_det:
+        freeze_int8_weights(model)
+        model.cast(torch.bfloat16)
     model.to(dev).eval()
     tracker = None
     if track and fused:
         tracker = build_bench_tracker(imgsz, dtype=torch.bfloat16, min_side=MIN_SIDE, window=WINDOW,
                                       frame_hw=FRAME_HW, device=dev, max_objects=2, full_res_ids=True,
-                                      affinity_bf16=True, enable_long_term=long_term,
+                                      affinity_bf16=True, enable_long_term=long_term, quantized_memory=int8_mem,
                                       pyramid_channels=pyramid_channels_for("v10", "s") if shared else None)
     elif track:
         tracker = build_bench_tracker(imgsz, dtype=torch.bfloat16, min_side=MIN_SIDE, frame_hw=FRAME_HW, device=dev)
     return model, tracker
 
 
-def make_fused_step(model, track_fn, imgsz: int = 640):
+def static_act_scales(model, imgsz: int = 640, device=None) -> dict:
+    """``bench.py``'s ``BENCH_INT8_STATIC=1`` calibration: the abs-max of each
+    eligible convolution's input over one letterboxed bf16 batch of
+    ``default_rng(7).integers(0, 255, (4, *FRAME_HW, 3))``."""
+    cal = np.random.default_rng(7).integers(0, 255, size=(4, *FRAME_HW, 3), dtype=np.uint8)
+    imgs, _, _ = letterbox(torch.from_numpy(cal).to(resolve_device(device)), imgsz, bgr_to_rgb=True,
+                           dtype=torch.bfloat16)
+    return collect_act_scales(model, [imgs], percentile=100.0)
+
+
+def make_fused_step(model, track_fn, imgsz: int = 640, int8: bool = False, act_scales: Optional[dict] = None):
     """``step(memory, frames_u8, conf, chk) → (outputs, memory)``: one fused
     step of ``bench.py`` on BGR uint8 frames (B, h0, w0, 3) on the model's
-    device, ``track_fn`` the tracker's step from ``bench_models``.  outputs: the
+    device, ``track_fn`` the tracker's step from ``bench_models``, the detector's
+    forward under ``int8_convs(int8, act_scales)``.  outputs: the
     best slot's ``boxes`` (B, 4), ``scores``, ``valid``, its ``mask`` (B, imgsz,
     imgsz) uint8, the tracker's ``ids`` (B, H, W) uint8 (without a tracker:
     None, and ``memory`` passes through) and the carried checksum ``chk``."""
@@ -144,7 +172,8 @@ def make_fused_step(model, track_fn, imgsz: int = 640):
     @torch.no_grad()
     def step(memory, frames_u8, conf, chk):
         imgs, _, _ = letterbox(frames_u8, imgsz, bgr_to_rgb=True, dtype=torch.bfloat16)
-        out = model(imgs)
+        with int8_convs(int8, act_scales=act_scales):
+            out = model(imgs)
         det = select_detections(out, nms_free=True, conf_thres=conf, max_det=8)
         masks = decode_masks(out["proto"], det["coeffs"][:, :1], det["boxes"][:, :1], (imgsz, imgsz),
                              upsample=True, threshold=0.5)
@@ -161,11 +190,11 @@ def make_fused_step(model, track_fn, imgsz: int = 640):
     return step
 
 
-def make_unfused_step(model, track_fn, imgsz: int = 640):
+def make_unfused_step(model, track_fn, imgsz: int = 640, int8: bool = False, act_scales: Optional[dict] = None):
     """``bench.py``'s ``BENCH_FUSED=0`` loop body as one call: the detector's
     step (``make_fused_step`` without a tracker), then ``track_fn`` on the same
     frames; the tracker's ids stay out of the checksum, as there."""
-    det_step = make_fused_step(model, None, imgsz)
+    det_step = make_fused_step(model, None, imgsz, int8, act_scales)
 
     def step(memory, frames_u8, conf, chk):
         out, _ = det_step(None, frames_u8, conf, chk)
@@ -183,16 +212,25 @@ def seeded_frames(batch: int) -> np.ndarray:
 
 def run_bench(batch: int = 128, iters: int = 10, imgsz: int = 640, track: bool = True,
               trace_dir: Optional[str] = None, device=None, shared: bool = False, fused: bool = True,
-              long_term: bool = False) -> Tuple[Dict, Dict]:
+              long_term: bool = False, int8_det: bool = False, int8_static: bool = False,
+              int8_mem: bool = False) -> Tuple[Dict, Dict]:
     """Build, warm up and time the fused step (or, with ``fused=False``, the
-    detector's and the tracker's steps one after the other).  Returns
-    (``bench.py``'s result dict plus ``median_step_ms``, details: step times in
-    ms, the checksum, the device, the seconds of the timed loop)."""
+    detector's and the tracker's steps one after the other), with the int8
+    switches of the module docstring.  Returns (``bench.py``'s result dict plus
+    ``median_step_ms``, details: step times in ms, the checksum, the device, the
+    seconds of the timed loop, the number of static scales or None)."""
+    if int8_static and not int8_det:
+        raise ValueError("static int8 scales (BENCH_INT8_STATIC) need the int8 detector (BENCH_INT8_DET)")
+    if int8_mem and not (fused and track):
+        raise ValueError("the int8 ring (BENCH_INT8) is the fused step's tracker's")
     dev = resolve_device(device)
-    model, tracker = bench_models(imgsz, track, dev, shared, fused, long_term)
+    model, tracker = bench_models(imgsz, track, dev, shared, fused, long_term, int8_mem, int8_det)
+    act_scales = static_act_scales(model, imgsz, dev) if int8_static else None
+    if act_scales is not None:
+        print(f"# static int8: {len(act_scales)} calibrated conv scales", file=sys.stderr)
     mem, track_fn = tracker if tracker is not None else (None, None)
-    step = make_fused_step(model, track_fn, imgsz) if fused or track_fn is None else make_unfused_step(
-        model, track_fn, imgsz)
+    make = make_fused_step if fused or track_fn is None else make_unfused_step
+    step = make(model, track_fn, imgsz, int8_det, act_scales)
     frames = torch.from_numpy(seeded_frames(batch)).to(dev)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -232,7 +270,8 @@ def run_bench(batch: int = 128, iters: int = 10, imgsz: int = 640, track: bool =
         "vs_baseline": round(fps / 500.0, 3),
         "median_step_ms": float(np.median(steps_ms)),
     }
-    return result, {"steps_ms": steps_ms, "chk": chk_value, "device": str(dev), "seconds": dt}
+    return result, {"steps_ms": steps_ms, "chk": chk_value, "device": str(dev), "seconds": dt,
+                    "static_scales": None if act_scales is None else len(act_scales)}
 
 
 # ---------------------------------------------------------------------------
@@ -335,10 +374,21 @@ def main(argv=None) -> int:
     ap.add_argument("--unfused", action="store_true",
                     help="the detector's step, then build_bench_tracker's (bench.py's BENCH_FUSED=0)")
     ap.add_argument("--trace", default=None, help="directory for a torch.profiler trace of one more step")
+    ap.add_argument("--int8-det", action="store_true",
+                    help="int8 convolutions in the detector (bench.py's BENCH_INT8_DET=1)")
+    ap.add_argument("--int8-static", action="store_true",
+                    help="static activation scales for --int8-det (bench.py's BENCH_INT8_STATIC=1)")
+    ap.add_argument("--int8-mem", action="store_true",
+                    help="the fused step's tracker with the int8 ring (bench.py's BENCH_INT8=1)")
     args = ap.parse_args(argv)
+    if args.int8_static and not args.int8_det:
+        ap.error("--int8-static sets the scales of --int8-det")
+    if args.int8_mem and (args.unfused or not args.track):
+        ap.error("--int8-mem is the fused step's tracker's: no --unfused or --no-track")
     if args.unfused and (args.shared or args.long_term or not args.track):
         ap.error("--unfused runs build_bench_tracker's own tracker: no --shared, --long-term or --no-track")
-    if args.mode != "stream" and (args.unfused or args.shared or args.long_term or not args.track or args.trace):
+    if args.mode != "stream" and (args.unfused or args.shared or args.long_term or not args.track or args.trace
+                                  or args.int8_det or args.int8_mem):
         ap.error(f"--mode {args.mode} takes only --batch, --iters and --imgsz")
     batch, iters = (v if v is not None else d for v, d in zip((args.batch, args.iters), MODE_DEFAULTS[args.mode]))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -351,7 +401,8 @@ def main(argv=None) -> int:
         print(f"# checksum {details['chk']}, {details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
     else:
         result, details = run_bench(batch, iters, args.imgsz, args.track, args.trace, shared=args.shared,
-                                    fused=not args.unfused, long_term=args.long_term)
+                                    fused=not args.unfused, long_term=args.long_term, int8_det=args.int8_det,
+                                    int8_static=args.int8_static, int8_mem=args.int8_mem)
         print(f"# steps ms {[round(t, 3) for t in details['steps_ms']]}, checksum {details['chk']}, "
               f"{details['seconds']:.3f} s on {details['device']}", file=sys.stderr)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

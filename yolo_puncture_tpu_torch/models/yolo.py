@@ -43,6 +43,7 @@ from yolo_puncture_tpu_torch.nn.common import (
 )
 from yolo_puncture_tpu_torch.nn.heads import Detect, Segment
 from yolo_puncture_tpu_torch.registry import register_model
+from yolo_puncture_tpu_torch.utils.convert import yolo_module_path
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -249,6 +250,9 @@ class YOLOModel(nn.Module):
             ch.append(c2)
         self.model = nn.ModuleList(layers)
         self._needed = {i for frm, *_ in self.spec if isinstance(frm, tuple) for i in frm if i != -1}
+        for name, m in self.named_modules():     # nn/quant.py keys a convolution by its JAX module path
+            if isinstance(m, nn.Conv2d):
+                m.flax_path = "/".join(yolo_module_path(name))
         to_compute_dtype(self, dtype)
         self.eval()
 
@@ -290,6 +294,12 @@ class YOLOModel(nn.Module):
         for m in bns:
             m.momentum = 0.03
         to_compute_dtype(self, self.dtype)
+        return self
+
+    def cast(self, dtype: torch.dtype) -> "YOLOModel":
+        """Compute in ``dtype`` from now on, as if built with it."""
+        self.dtype = dtype
+        to_compute_dtype(self, dtype)
         return self
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -13,6 +13,10 @@ convolutions and linear layers compute in bf16 on bf16 weights (flax keeps fp32
 parameters and rounds them to bf16 at each use, which gives the same values),
 and BatchNorm keeps fp32 statistics and affine parameters, normalises a bf16
 input in fp32 and rounds its output to bf16 (flax ``BatchNorm(dtype=bf16)``).
+
+``ConvBN`` runs its convolution through ``nn/quant.py conv_forward``: inside
+``int8_convs`` it is an int8 product, inside ``collect_act_scales`` its input's
+scale is recorded, elsewhere it is the plain convolution.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolo_puncture_tpu_torch.nn import quant
 
 BN_EPS = 1e-3
 
@@ -98,11 +104,12 @@ class ConvBN(nn.Module):
                  g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.conv.flax_path = "conv"          # the JAX module path; YOLOModel sets its own
         self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=0.03)
         self.act = act
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = self.bn(quant.conv_forward(self.conv, x))
         return F.silu(x) if self.act else x
 
 

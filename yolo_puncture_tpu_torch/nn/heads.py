@@ -27,6 +27,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from yolo_puncture_tpu_torch.nn import quant
 from yolo_puncture_tpu_torch.nn.common import ConvBN, Proto, dfl_expectation
 
 
@@ -113,6 +114,11 @@ class Detect(nn.Module):
     def forward(self, feats: List[torch.Tensor]):
         if self.training:
             return self._train_forward(feats)
+        if self.one2one and quant.recording():
+            # the JAX package's eager forward runs the one-to-many branches too, so its
+            # calibration records their inputs: the same keys here
+            for m, f in zip([*self.cv2, *self.cv3], [*feats, *feats]):
+                m(f)
         cv2, cv3 = (self.one2one_cv2, self.one2one_cv3) if self.one2one else (self.cv2, self.cv3)
         boxes, probs = self.decode(
             [m(f) for m, f in zip(cv2, feats)], [m(f) for m, f in zip(cv3, feats)]

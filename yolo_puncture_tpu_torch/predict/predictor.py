@@ -15,6 +15,13 @@ model runs on ``cuda`` unless the caller passes ``device="cpu"``, in ``dtype``
 (fp32, or bf16 as the apps build it): a bf16 model gets a bf16 letterbox, and
 its masks are decoded, pasted, cropped and thresholded in bf16, as the JAX
 package's predictor does.
+
+``int8_serving=True`` runs the model's forward under ``nn/quant.py
+int8_convs``: its ``ConvBN`` convolutions become int8 products, with dynamic
+activation scales, or static ones after ``calibrate_int8``; the rest of
+``predict`` is unchanged, and the masks still decode through the
+``proto_decode`` kernel.  Dynamic scales are taken over the whole batch, so a
+frame's boxes depend on the frames it is batched with, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from yolo_puncture_tpu_torch.models.yolo import YOLOModel
+from yolo_puncture_tpu_torch.nn.quant import collect_act_scales, freeze_int8_weights, int8_convs
 from yolo_puncture_tpu_torch.ops.letterbox import letterbox, letterbox_params, scale_boxes
 from yolo_puncture_tpu_torch.ops.masks import crop_masks, decode_masks, paste_masks_to_original
 from yolo_puncture_tpu_torch.ops.nms import select_detections
@@ -65,6 +73,8 @@ class YOLO:
     ``.pth`` path, or a ``.msgpack`` file of the JAX package's flax variables.
     A name or a missing file gives a seeded random init.
     dtype: the model's compute type, ``torch.float32`` or ``torch.bfloat16``.
+    int8_serving: int8 convolutions (module docstring); validate the accuracy on
+    the weights you serve before use.
     device: ``None`` (the card) or ``"cpu"``; without a card only ``"cpu"`` works.
     """
 
@@ -80,8 +90,6 @@ class YOLO:
         int8_serving: bool = False,
         device=None,
     ):
-        if int8_serving:
-            raise NotImplementedError("int8 serving is not ported to PyTorch yet")
         self.device = resolve_device(device)
         self.weights_path = str(weights)
         self.version, self.scale, self.task = parse_model_name(self.weights_path)
@@ -89,10 +97,17 @@ class YOLO:
         self.names = names or {i: f"class{i}" for i in range(nc)}
         self.max_det = max_det
         self.max_masks = max_masks
+        self.int8_serving = bool(int8_serving)
+        self._act_scales: Optional[dict] = None      # static int8 activation scales (calibrate_int8)
         # Platt calibration (a, b): reported conf = σ(a·logit(s) + b)
         self.conf_calib: Optional[Tuple[float, float]] = None
-        self.model = YOLOModel(self.version, self.scale, nc, self.task, dtype=dtype)
+        # int8 weights are quantised from fp32 ones (nn/quant.py): built in fp32, frozen, then cast
+        self.model = YOLOModel(self.version, self.scale, nc, self.task,
+                               dtype=torch.float32 if self.int8_serving else dtype)
         self._load_weights(seed)
+        if self.int8_serving:
+            freeze_int8_weights(self.model)
+            self.model.cast(dtype)
         self.model.to(self.device).eval()
 
     def _load_weights(self, seed: int) -> None:
@@ -110,6 +125,20 @@ class YOLO:
         self.device = resolve_device(device)
         self.model.to(self.device)
         return self
+
+    def calibrate_int8(self, frames, imgsz: int = 640, percentile: float = 99.9) -> dict:
+        """Static scales for the int8 path: the ``percentile`` of each eligible
+        convolution's input over ``frames`` (any source ``predict`` takes, a
+        video file too), each frame letterboxed as ``predict`` does and run
+        alone.  The scales are kept on the predictor, which uses them from its
+        next ``predict``, and returned."""
+        frames_list, _ = self._to_frames(frames)
+        if not frames_list:
+            raise ValueError("calibrate_int8 needs at least one frame")
+        batches = (letterbox(torch.from_numpy(f[None]).to(self.device), imgsz, bgr_to_rgb=True,
+                             dtype=self.model.dtype)[0] for f in frames_list)
+        self._act_scales = collect_act_scales(self.model, batches, percentile=percentile)
+        return self._act_scales
 
     # -- confidence calibration ---------------------------------------------
 
@@ -252,7 +281,8 @@ class YOLO:
         h0, w0 = frames.shape[1:3]
         r, _, pad = letterbox_params(h0, w0, imgsz)
         imgs, _, _ = letterbox(frames, imgsz, bgr_to_rgb=True, dtype=self.model.dtype)
-        out = self.model(imgs)
+        with int8_convs(self.int8_serving, act_scales=self._act_scales if self.int8_serving else None):
+            out = self.model(imgs)
         det = select_detections(out, nms_free=self.version == "v10", conf_thres=conf,
                                 iou_thres=iou, max_det=self.max_det)
         valid = det["valid"]

@@ -34,7 +34,7 @@ def reference_tracker_geometry(frame_hw, min_side: int = 480):
 def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, window: int = 4,
                         frame_hw=(720, 1280), variables=None, device=None, max_objects: int = 4,
                         full_res_ids: bool = False, affinity_bf16: bool = False, pyramid_channels=None,
-                        enable_long_term: bool = False):
+                        enable_long_term: bool = False, quantized_memory: bool = False):
     """Streaming propagation over frame batches, the JAX package's benchmark helper.
 
     Returns (initial memory, fn(memory, frames_u8, pyramid=None) → (memory,
@@ -45,8 +45,9 @@ def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, windo
     readout is then the dense one, which returns the attention usage), in
     ``dtype`` (fp32 by default), with ``variables`` (a seeded
     random init by default), with ``affinity_bf16`` (the readout's logits
-    rounded to bf16, as ``bench.py``'s fused step sets it); ``fn.core`` is that
-    tracker.  ``fn`` takes BGR or
+    rounded to bf16, as ``bench.py``'s fused step sets it), with the int8 working
+    ring when ``quantized_memory`` (``bench.py``'s ``BENCH_INT8=1``: the dense int8
+    readout in place of the readout kernel); ``fn.core`` is that tracker.  ``fn`` takes BGR or
     RGB uint8 frames (B, h0, w0, 3) on the tracker's device, resizes them with
     ``jax.image.resize``'s bilinear in bf16 (``ops/resize.py resize_bilinear``),
     encodes all B keys at once and then, with ``window > 1``, propagates windows
@@ -72,6 +73,7 @@ def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, windo
         mem_every=window if window > 1 else 5,
         enable_long_term=enable_long_term, dtype=dtype or torch.float32, device=device, affinity_bf16=affinity_bf16,
         pyramid_adapter=pyramid_channels is not None, pyramid_channels=pyramid_channels or (128, 256, 512),
+        quantized_memory=quantized_memory,
     )
     active = core.memory.active.clone()
     active[0] = True                      # one active object, so readout and decode do real work

@@ -25,7 +25,11 @@ What differs from the JAX package, on purpose:
     the kernel does not compute, and stays ``network.memory_readout_dense``;
   * tensors are channel-first (``network.py``); ``write_pos``, ``lt_pos`` and
     ``frame_idx`` are Python ints (``memory.py``);
-  * ``quantized_memory`` is not ported yet and raises;
+  * ``quantized_memory=True`` keeps the working ring in int8 and reads it with
+    ``network.memory_readout_dense_int8`` (int8 products through PyTorch calls,
+    the usage accumulated as on the other paths); the readout kernel has no int8
+    path and does not run then, as the JAX package's flash kernel does not.  It
+    needs ``enable_long_term=False``;
   * ``affinity_bf16`` rounds the readout's logits to bf16 before the softmax, as
     the JAX package's dense readout rounds its (Q, M) affinity: on the
     long-term path in ``memory_readout_dense``, on the kernel path inside the
@@ -48,6 +52,7 @@ from yolo_puncture_tpu_torch.track.memory import MemoryState, consolidate, engag
 from yolo_puncture_tpu_torch.track.network import (
     PropagationNetwork,
     memory_readout_dense,
+    memory_readout_dense_int8,
     soft_aggregate,
 )
 from yolo_puncture_tpu_torch.utils.convert import (
@@ -197,8 +202,9 @@ class TrackerCore:
         device=None,
     ):
         self.config = config or {}
-        if self.config.get("quantized_memory", quantized_memory):
-            raise NotImplementedError("quantized_memory (the int8 working ring) is not ported yet")
+        # int8 working ring: keys and values stored s8 with per-slot scales, both
+        # readout products s8×s8→s32; the long-term bank has no int8 path
+        self.quantized_memory = bool(self.config.get("quantized_memory", quantized_memory))
         self.device = resolve_device(device)
         # exact_windows: the windowed paths thread the sensory GRU through every
         # frame, which is the per-frame step() at windowed throughput; False
@@ -225,6 +231,11 @@ class TrackerCore:
             raise ValueError(
                 f"max_long_term_elements ({lt_capacity}) must be >= num_prototypes ({self.num_prototypes})"
             )
+        if self.quantized_memory and self.enable_long_term:
+            raise ValueError(
+                "quantized_memory requires enable_long_term=False (the "
+                "long-term prototype bank has no int8 readout path)"
+            )
         self.dtype = dtype
         self.pyramid_adapter = bool(pyramid_adapter)
         self.net = PropagationNetwork(with_pyramid_adapter=self.pyramid_adapter,
@@ -240,7 +251,7 @@ class TrackerCore:
         self.net.to(device=self.device, dtype=dtype).eval()
         self.memory: MemoryState = init_memory(
             self.h16, self.w16, max_objects, mem_frames, dtype, num_prototypes=lt_capacity,
-            value_dim=self.net.value_dim, device=self.device,
+            value_dim=self.net.value_dim, quantized=self.quantized_memory, device=self.device,
         )
         self.object_manager = ObjectManager(max_objects)
         # an object unmatched for this many incorporate calls in a row is deleted
@@ -273,6 +284,11 @@ class TrackerCore:
 
     def _readout(self, q, memory: MemoryState):
         """q (Q, Ck) → (readout (No, Q, Cv), memory with the usage accumulated)."""
+        if self.quantized_memory:
+            readout, usage = memory_readout_dense_int8(q, memory.keys, memory.k_scale, memory.values,
+                                                       memory.v_scale, memory.valid, out_dtype=self.dtype,
+                                                       return_usage=True)
+            return readout, memory._replace(usage=memory.usage + usage)
         keys, vals, valid = self._memory_bank(memory)
         if not self.enable_long_term:
             # nothing consumes the usage: the streaming kernel

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolo_puncture_tpu_torch.nn.common import C2f, ConvBN
+from yolo_puncture_tpu_torch.nn.quant import RCP127, absmax_scale, int_mm, quantize
 from yolo_puncture_tpu_torch.ops.kernels.decode_tail import (
     DecodeTailParams,
     decode_tail,
@@ -311,6 +312,49 @@ def memory_readout_dense(query_key, mem_keys, mem_values, mem_valid, return_usag
     out = (torch.matmul(p.float(), mem_values.float()) / denom[None]).to(mem_values.dtype)
     if return_usage:
         return out, (p.float() * (1.0 / denom)).sum(dim=0)
+    return out
+
+
+def memory_readout_dense_int8(query_key, keys_i8, k_scale, values_i8, v_scale, slot_valid,
+                              out_dtype=torch.float32, return_usage: bool = False):
+    """Dense readout of an int8 ring (``init_memory(quantized=True)``): both
+    products s8×s8→s32.  The JAX package computes them with ``jnp.einsum``, not
+    with a Pallas kernel, and so does the port with PyTorch calls
+    (``nn/quant.py int_mm``, ``torch._int_mm`` on the card); the readout kernel
+    has no int8 path and does not run here.
+
+    query_key (Q, Ck) fp, quantised per call with one scale; keys_i8 (T, HW, Ck)
+    and k_scale (T,); values_i8 (No, T, HW, Cv) and v_scale (No, T); slot_valid
+    (T,) bool → (No, Q, Cv) in ``out_dtype``, and with ``return_usage`` the
+    attention mass per ring element (T, HW).  The affinity is dequantised per
+    slot, invalid slots are −inf, and the softmax max is taken per query over all
+    (t, h); its weights are quantised per query (``rowmax / 127``, clipped to
+    [0, 127]) and their sum is the denominator.  A per-slot value scale varies
+    along the contracted axis, so the value product runs once per slot, the
+    objects folded into the columns and HW zero-padded to a multiple of 8 (exact),
+    and each slot is dequantised before the sum over slots."""
+    T, HW, Ck = keys_i8.shape
+    No, _, _, Cv = values_i8.shape
+    Q = query_key.shape[0]
+    sq = absmax_scale(query_key)
+    qi8 = quantize(query_key, sq)
+    aff = int_mm(qi8, keys_i8.reshape(T * HW, Ck)).float().view(Q, T, HW)
+    aff = aff * (sq * Ck ** -0.5) * k_scale[None, :, None]             # dequantised per slot
+    valid = slot_valid[None, :, None]
+    aff = aff.masked_fill(~valid, float("-inf"))
+    m = aff.amax(dim=(1, 2), keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(aff - m) * valid                                       # (Q, T, HW) fp32
+    sp = p.amax(dim=(1, 2), keepdim=True).clamp_min(1e-9) * RCP127       # p in (0, 1]: rowmax / 127
+    pi8 = quantize(p, sp, lo=0)
+    pq = pi8.float() * sp                                                # the dequantised weights
+    l = pq.sum(dim=(1, 2)).clamp_min(1e-9)                               # (Q,)
+    vals = values_i8.permute(1, 0, 3, 2).reshape(T, No * Cv, HW)        # (T, No·Cv, HW)
+    out = torch.stack([int_mm(pi8[:, t].contiguous(), vals[t]) for t in range(T)])   # (T, Q, No·Cv) int32
+    out = (out.float().view(T, Q, No, Cv) * v_scale.T[:, None, :, None]).sum(0)      # per-slot dequant, T-sum
+    out = (out.permute(1, 0, 2) * (sp.reshape(1, Q, 1) / l[None, :, None])).to(out_dtype)
+    if return_usage:
+        return out, torch.einsum("qth,q->th", pq, 1.0 / l)
     return out
 
 

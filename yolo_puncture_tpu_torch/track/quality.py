@@ -10,13 +10,15 @@ clips with a second crossing bar, half of each group with a dark occluder), each
 propagated from its frame-0 ground truth with
 ``resources/weights/tracker_propagation.msgpack``; the score is the mean
 per-frame, per-object IoU against the ground truth over frames 1..T-1 (objects
-with an empty ground truth skipped).  Two rows of the table:
+with an empty ground truth skipped).  Three rows of the table:
 
   * "base (per-frame, fp32)": ``step`` frame by frame;
   * "bench-exact": bf16, ``affinity_bf16=True``, exact windows of 4
-    (``propagate_frames``), a trailing partial window frame by frame.
+    (``propagate_frames``), a trailing partial window frame by frame;
+  * "int8 memory": the base row's tracker with ``quantized_memory=True`` (the
+    int8 working ring and its dense int8 readout), frame by frame.
 
-The JAX package records 0.662 for both (``JAX_MEAN_IOU``).  The card's machine
+The JAX package records 0.662, 0.662 and 0.663 (``JAX_MEAN_IOU``).  The card's machine
 has no JAX, so ``make_realistic_clip`` and ``_iou`` are numpy/scipy copies of
 the tool's, equal to them bit for bit for the same generator.
 """
@@ -38,7 +40,8 @@ from yolo_puncture_tpu_torch.track.network import soft_aggregate
 
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                        "resources", "weights", "tracker_propagation.msgpack")
-JAX_MEAN_IOU = {"base (per-frame, fp32)": 0.662, "bench-exact": 0.662}  # docs/tracker_quality.md
+JAX_MEAN_IOU = {"base (per-frame, fp32)": 0.662, "bench-exact": 0.662,   # docs/tracker_quality.md
+                "int8 memory": 0.663}
 
 
 def make_realistic_clip(rng, T, h, w, shrink=True, n_objects=1, occluder=False):
@@ -124,10 +127,12 @@ def protocol_clips(n_clips: int = 16, T: int = 32, h: int = 240, w: int = 432, s
 def row_tracker(row: str, image_size: Tuple[int, int], device=None) -> TrackerCore:
     """The ``TrackerCore`` of a row of the table: 2 object slots, ring of 8 written
     every 4 frames, long-term memory off; fp32, or for "bench-exact" bf16 with
-    ``affinity_bf16``."""
+    ``affinity_bf16``, or for "int8 memory" the int8 ring."""
     kw = dict(image_size=image_size, max_objects=2, mem_frames=8, mem_every=4, enable_long_term=False)
     if row == "bench-exact":
         kw.update(dtype=torch.bfloat16, affinity_bf16=True)
+    elif row == "int8 memory":
+        kw.update(quantized_memory=True)
     return TrackerCore(variables=WEIGHTS, device=device, **kw)
 
 
@@ -186,7 +191,7 @@ def eval_config(core: TrackerCore, clips, window: int = 0, exact: bool = False) 
 
 
 def run_protocol(n_clips: int = 16, T: int = 32, h: int = 240, w: int = 432, device=None) -> Dict[str, Dict]:
-    """Both rows on the protocol's clips: {row: {"mean_iou", "n", "jax_mean_iou"}}."""
+    """Every row on the protocol's clips: {row: {"mean_iou", "n", "jax_mean_iou"}}."""
     clips = protocol_clips(n_clips, T, h, w)
     out = {}
     for row in JAX_MEAN_IOU:

@@ -229,6 +229,19 @@ _LEAF_BACK = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_st
               "bias": ("params", "bias")}
 
 
+def yolo_module_path(name: str) -> Tuple[str, ...]:
+    """A module name of the port's YOLO (``model.2.m.0.cv1.conv``) → the JAX
+    package's flax module path (``('model_2', 'm_0', 'cv1', 'conv')``)."""
+    k = _PORT_MODEL.sub(lambda m: f"model_{m.group(1)}.", name + ".")
+    k = _PORT_HEAD_NESTED.sub(
+        lambda m: f"{m.group(1) or ''}cv{m.group(2)}_{m.group(3)}.c{m.group(4)}_{m.group(5)}.", k)
+    k = _PORT_HEAD_FLAT.sub(lambda m: f"{m.group(1) or ''}cv{m.group(2)}_{m.group(3)}.c{m.group(4)}.", k)
+    k = _PORT_CIB.sub(lambda m: f"cv1_{m.group(1)}.", k)
+    k = _PORT_M.sub(lambda m: f"m_{m.group(1)}.", k)
+    k = _PORT_FFN.sub(lambda m: f"ffn_{m.group(1)}.", k)
+    return tuple(k[:-1].split("."))
+
+
 def yolo_variables(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """An ultralytics-keyed YOLO state dict (the port's ``YOLOModel.state_dict()``)
     → the JAX package's flax variable tree (``params`` / ``batch_stats`` nested
@@ -241,14 +254,7 @@ def yolo_variables(sd: Mapping[str, Any]) -> Dict[str, Any]:
         if key.endswith("num_batches_tracked"):
             continue
         k, leaf = key.rsplit(".", 1)
-        k = _PORT_MODEL.sub(lambda m: f"model_{m.group(1)}.", k + ".")
-        k = _PORT_HEAD_NESTED.sub(
-            lambda m: f"{m.group(1) or ''}cv{m.group(2)}_{m.group(3)}.c{m.group(4)}_{m.group(5)}.", k)
-        k = _PORT_HEAD_FLAT.sub(lambda m: f"{m.group(1) or ''}cv{m.group(2)}_{m.group(3)}.c{m.group(4)}.", k)
-        k = _PORT_CIB.sub(lambda m: f"cv1_{m.group(1)}.", k)
-        k = _PORT_M.sub(lambda m: f"m_{m.group(1)}.", k)
-        k = _PORT_FFN.sub(lambda m: f"ffn_{m.group(1)}.", k)
-        path = tuple(k[:-1].split("."))
+        path = yolo_module_path(k)
         a = np.asarray(value.detach().cpu().float() if isinstance(value, torch.Tensor) else value, np.float32)
         if leaf == "weight" and a.ndim == 4:
             collection, name = "params", "kernel"
