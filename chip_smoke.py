@@ -104,7 +104,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      dynamic scales and after ``calibrate_int8`` of the needle mp4, ``serve --int8
      --calib_dir``, the tracker with the int8 ring (``memory_readout`` at 0) against
      its CPU run, and the bench's ``--int8-det``, ``--int8-det --int8-static`` and
-     ``--int8-mem`` in turns with the default step, each line printed;
+     ``--int8-mem`` in turns with the default step, each line printed; VAN and SAM
+     (3z, ``zoo_phase``): ``ClassifierNet("van_b0")`` at 380² fp32 and bf16 against the
+     port's CPU run, its forward beside B3's, every VAN variant built with the JAX
+     package's parameter count and b2 and b6 run, the speed pipeline with VAN-B0
+     (fp32, bf16; ``proto_decode`` once a batch) with one batch's classifier held to
+     the CPU, ``evaluate_speed --cls_model van_b0 --cls_init`` on the needle mp4,
+     ``ClassifierFinetuner`` on VAN-B0 (B 16); SAM ``vit_b`` at 1024² (encoder and a
+     64-point decoder batch against the CPU, the automatic mask generator on a
+     720×1280 frame, twice, equal), ``segment_anything(frame, "vit_l")``, a ``vit_h``
+     encoder pass, each encoder against its FLOP bound;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -1945,9 +1954,12 @@ def train_apps_phase(tmp: str, imgsz: int = 640, device=None, tracker_argv=(), m
 # in [0, 1]), where flax's E[x²] − E[x]² in fp32 cancels.  scripts/finetune_fp32_deviation.py measured on
 # the CPU, fp32 against float64 at 320², batch 4: gradients up to 1.94 % of their norm, the vanishing
 # biases before a train-mode BatchNorm up to 4.1e-5 of the whole gradient, the loss 8.2e-8; the limits
-# give ten times that
+# give ten times that.  VAN-B0's, by the same script: at 380², batch 16 (phase 3z; on the H100 machine's CPU)
+# gradients up to 2.27e-6 of their norm, the vanishing ones up to 4.7e-8 of the whole gradient, the loss 8.2e-8;
+# at 96², batch 4 (the gpu test's size) 6.9e-6, 1.2e-8 and 0; ten times the larger of each
 FT_LIMITS = {"classifier": (DET_STEP_LOSS_REL, DET_STEP_GRAD_REL, DET_STEP_GRAD_GLOBAL),
-             "unet": (1e-6, 0.2, 4e-4)}
+             "unet": (1e-6, 0.2, 4e-4),
+             "van": (8.2e-7, 6.9e-5, 4.7e-7)}
 # recalibrated statistics of the first BatchNorm against float64 convolutions of the same batches: a fp32
 # convolution of 27 (B3's stem) or 27 + bias (U2NETP's first) products per output rounds each by a few 2^-24
 FT_STATS_REL = 1e-5
@@ -2015,8 +2027,9 @@ def finetune_case(smi, what, make_ft, batches, first, device, limits, steps=FT_S
         l_cpu[0] if isinstance(l_cpu, tuple) else l_cpu)
     loss_rel, grad_rel, grad_global = limits
     share = grads_match(list(model.named_parameters()), list(cpu_model.parameters()), grad_rel, grad_global, what)
-    log(f"{what}: one step, batch {b0[0].shape[0]}, loss {l_gpu:.6f} on the card, {l_cpu:.6f} on the CPU; "
-        f"gradients at most {share:.3g} of their limit (rel {grad_rel}, global {grad_global})")
+    log(f"{what}: one step, batch {b0[0].shape[0]}, loss {l_gpu:.6f} on the card, {l_cpu:.6f} on the CPU (relative "
+        f"{abs(l_gpu - l_cpu) / abs(l_cpu):.3g}, limit {loss_rel}); gradients at most {share:.3g} of their limit (rel "
+        f"{grad_rel}, global {grad_global})")
     if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= loss_rel * abs(l_cpu)):
         raise AssertionError(f"{what}: loss {l_gpu} on the card, {l_cpu} on the CPU")
     del cpu_ft, cpu_model
@@ -2844,6 +2857,396 @@ def int8_phase(smi: str, frames, calib_video: str, calib_frames, serve_frames, p
     return launches
 
 
+# -- 3z: the rest of the model zoo, VAN and SAM ------------------------------------------------------------
+# VAN-B0 on the card against the port's CPU run of the same crops (fp32, TF32 off on both): the logits differ by
+# the order of cuDNN's and the CPU's sums through 13 blocks, a few 1e-6 of a probability; bf16 against fp32 on
+# the card: a bf16 rounding of every activation, as 3f's B3 (CLS_BF16_PROB_MEAN 1e-2 mean) but held at the max;
+# and it must be measurably bf16: its mean distance from fp32 at least VAN_BF16_AWAY times the fp32 distance between
+# the card and the CPU (a bf16 model computing in fp32 would sit at the latter)
+VAN_PROB_TOL = 1e-4
+VAN_BF16_PROB_TOL = 1e-2
+VAN_BF16_AWAY = 10.0
+# every VAN variant's parameter count with a 2-class head: the JAX package's (``jax.eval_shape``;
+# tests/test_torch_van.py holds this table to it)
+VAN_PARAMS = {"van_b0": 3_849_314, "van_b1": 13_349_826, "van_b2": 26_066_498, "van_b3": 44_253_634,
+              "van_b4": 59_771_202, "van_b5": 89_200_226, "van_b6": 199_061_954}
+VAN_DEEP = ("van_b2", "van_b6")          # one forward each on the card: stage 3 of 12 and of 90 blocks
+# SAM's encoder and one decoder batch on the card against the CPU: max abs difference over the largest value
+SAM_REL_TOL = 1e-3
+SAM_TYPES = ("vit_b", "vit_l", "vit_h")
+# the seeded vit_b's decoder shaped so that the generator's default thresholds keep masks, as
+# tests/test_torch_sam_amg.py shapes its weights: the hypernetworks' last layers scaled (mask logits of a few
+# units, so that the stability filter passes) and the IoU head's bias shifted so that SAM_KEEP_SHARE of the
+# frame's whole-crop points pass pred_iou_thresh (seeded IoU predictions sit near 0 and move with the geometry)
+SAM_HYPER_GAIN = 20.0
+SAM_KEEP_SHARE = 0.25
+
+
+def van_variables(model) -> dict:
+    """A port VAN's weights as the JAX package's variable tree (``params`` /
+    ``batch_stats``, fp32 numpy): the inverse of ``export_classifier_state_dict``,
+    which ``evaluate_speed --cls_init`` reads back from a msgpack file."""
+    import re
+
+    out = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        a = t.detach().float().cpu().numpy()
+        mod, leaf = key.rsplit(".", 1)
+        path = re.sub(r"^block(\d+)\.(\d+)", r"block\1_\2", mod).replace("dwconv.dwconv", "dwconv").split(".")
+        if leaf == "weight" and a.ndim > 1:
+            coll, name, a = "params", "kernel", a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            coll, name = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                          "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}.get(
+                leaf, ("params", leaf))
+        node = out[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(a)
+    return out
+
+
+def sam_encoder_work(variant: str, img_size: int) -> tuple:
+    """(operations, bytes) of one SAM encoder pass, reckoned from its shapes: the
+    linear layers of every block (qkv, proj, MLP: 24·N·C² at N = grid² tokens),
+    the global blocks' attention (q·kᵀ and the weighted sum, 4·N²·C, and the
+    rel-pos bias, 4·N·grid·C), the windowed blocks' over 14² windows of the grid
+    padded to a multiple of 14, the patch embedding and the neck; the bytes: the
+    weights, the image and the embedding, once each."""
+    from yolo_puncture_tpu_torch.models.sam import _VIT_CFG, PATCH, PROMPT_DIM, WINDOW
+
+    dim, depth, _, global_idx = _VIT_CFG[variant]
+    g = img_size // PATCH
+    n, nw, t = g * g, (-(-g // WINDOW)) ** 2, WINDOW * WINDOW
+    flops = (depth * 24 * n * dim * dim
+             + len(global_idx) * (4 * n * n * dim + 4 * n * g * dim)
+             + (depth - len(global_idx)) * nw * (4 * t * t * dim + 4 * t * WINDOW * dim)
+             + 2 * n * dim * 3 * PATCH * PATCH + 2 * n * dim * PROMPT_DIM + 2 * n * PROMPT_DIM * PROMPT_DIM * 9)
+    params = {"vit_b": 93_735_472, "vit_l": 312_342_832, "vit_h": 641_090_608}[variant]
+    return flops, 4 * (params + 3 * img_size * img_size + PROMPT_DIM * n)
+
+
+def shape_sam_for_masks(sam, frame: np.ndarray, **gen_kw) -> float:
+    """Scale the seeded ``sam``'s hypernetworks by ``SAM_HYPER_GAIN`` and shift its
+    IoU head so that ``SAM_KEEP_SHARE`` of the whole-frame crop's points pass the
+    generator's default ``pred_iou_thresh``; returns the shift."""
+    from yolo_puncture_tpu_torch.models.sam import SamAutomaticMaskGenerator
+
+    dev = next(sam.parameters()).device
+    with torch.no_grad():
+        for mlp in sam.mask_decoder.output_hypernetworks_mlps:
+            mlp.layers[2].weight *= SAM_HYPER_GAIN
+        thresh = SamAutomaticMaskGenerator(sam, **gen_kw).pred_iou_thresh
+        loose = SamAutomaticMaskGenerator(sam, **gen_kw, pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+        _, scores, _ = loose._candidates(torch.from_numpy(np.ascontiguousarray(frame)).to(dev), loose.points_per_side)
+        shift = float(thresh - np.quantile(scores, 1.0 - SAM_KEEP_SHARE))
+        sam.mask_decoder.iou_prediction_head.layers[2].bias += shift
+    return shift
+
+
+def same_sam_masks(got, ref) -> bool:
+    return len(got) == len(ref) and all(
+        g["bbox"] == r["bbox"] and g["area"] == r["area"] and g["crop_box"] == r["crop_box"]
+        and g["predicted_iou"] == r["predicted_iou"] and np.array_equal(g["segmentation"], r["segmentation"])
+        for g, r in zip(got, ref))
+
+
+def zoo_phase(smi: str, clip, decoded=None, needle_mp4=None, imgsz: int = 640, device=None, van_size: int = 380,
+              van_batch: int = 16, ft_steps: int = FT_STEPS, deep=VAN_DEEP, sam_size: int = 1024,
+              sam_frame_hw=(720, 1280), sam_types=SAM_TYPES, points_per_side: int = 32, sam_batch: int = 64) -> dict:
+    """3z: VAN and SAM.  ``ClassifierNet("van_b0")`` fp32 and bf16 on ``van_batch``
+    seeded crops of ``van_size``² against the port's CPU run; its forward timed
+    beside EfficientNet-B3's at B 1 and B ``van_batch``; every VAN variant built
+    with the JAX package's parameter count and ``deep``'s forwards; the speed
+    pipeline with YOLOv10-S seg and VAN-B0 (fp32, then bf16) over ``clip``
+    (``proto_decode`` once a batch), one batch's classifier held to the CPU on the
+    same crops, frames/s beside B3's in turns; ``evaluate_speed --cls_model van_b0
+    --cls_init`` (a msgpack of the same weights) over ``needle_mp4`` against the
+    pipeline on the ``decoded`` frames; ``ClassifierFinetuner`` on VAN-B0
+    (``finetune_case``).  SAM ``vit_b`` at ``sam_size``²: the encoder and one
+    ``sam_batch``-point decoder batch against the CPU, the generator
+    (``crop_n_layers=1``, downscale 2; the decoder shaped by
+    ``shape_sam_for_masks``) on a seeded frame of ``sam_frame_hw``, the masks it
+    keeps at the default thresholds equal over two runs, seconds a frame with its
+    stages, host share and peak memory; ``segment_anything(frame, "vit_l")`` (the missing-checkpoint warning);
+    one ``vit_h`` encoder pass; each encoder timed against its FLOP bound.
+    Returns the kernels' launches on these paths."""
+    import contextlib
+    import copy
+    import io
+    import shutil
+    import tempfile
+    import types
+
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.models.efficientnet import preprocess_classifier
+    from yolo_puncture_tpu_torch.models.sam import SamAutomaticMaskGenerator, build_sam
+    from yolo_puncture_tpu_torch.ops.kernels.proto_decode import proto_decode
+    from yolo_puncture_tpu_torch.pipeline import VideoSpeedPipeline
+    from yolo_puncture_tpu_torch.registry import create_model
+    from yolo_puncture_tpu_torch.tasks import ClassifierNet
+    from yolo_puncture_tpu_torch.train import ClassifierFinetuner
+    from yolo_puncture_tpu_torch.utils import segment_anything
+    from yolo_puncture_tpu_torch.utils.convert import write_msgpack
+
+    dev = torch.device(device or "cuda")
+    t_phase = time.perf_counter()
+    launches = {"proto_decode": 0, "proto_decode_bf16": 0}
+    h0, w0 = clip.shape[1:3]
+
+    # -- (a) ClassifierNet("van_b0") on the card against the CPU; bf16 against fp32 --------------------------------
+    crops, _ = brightness_crops(van_batch, van_size, seed=40)
+    x = torch.from_numpy(crops)
+    van = ClassifierNet("van_b0", input_size=van_size, seed=0, device=dev)
+    van16 = ClassifierNet("van_b0", input_size=van_size, seed=0, dtype=BF16, device=dev)
+    van_cpu = ClassifierNet("van_b0", input_size=van_size, seed=0, device="cpu")
+    p32, p16, pcpu = (net._forward(x.to(net.device))[2].float().cpu().numpy() for net in (van, van16, van_cpu))
+    err, err16 = float(np.abs(p32 - pcpu).max()), float(np.abs(p16 - p32).max())
+    away16 = float(np.abs(p16 - p32).mean())
+    clear = np.abs(pcpu.max(1) - 0.5) > VAN_PROB_TOL                 # no class tie within the tolerance
+    same_class = bool((p32.argmax(1) == pcpu.argmax(1))[clear].all())
+    log(f"VAN-B0 {van_size}^2 B {van_batch} on the card vs the CPU: probabilities max abs {err:.3g} (tol "
+        f"{VAN_PROB_TOL}), classes equal {same_class} ({int(clear.sum())} clear of a tie); bf16 vs fp32 max "
+        f"{err16:.3g} "
+        f"(tol {VAN_BF16_PROB_TOL}), mean {away16:.3g} ({away16 / max(err, 1e-30):.3g} times the fp32 card-CPU "
+        f"distance, at least {VAN_BF16_AWAY}); probability of class 1 from {pcpu[:, 1].min():.4f} to "
+        f"{pcpu[:, 1].max():.4f}")
+    if not (err <= VAN_PROB_TOL and same_class and err16 <= VAN_BF16_PROB_TOL and away16 > 0
+            and away16 >= VAN_BF16_AWAY * err):
+        raise AssertionError("VAN-B0 on the card disagrees with its CPU run, or bf16 with fp32, or bf16 is not bf16")
+    b3 = ClassifierNet("efficientnet_b3", input_size=van_size, seed=0, device=dev)
+    b3_16 = ClassifierNet("efficientnet_b3", input_size=van_size, seed=0, dtype=BF16, device=dev)
+    forward_ms = {}
+    with torch.no_grad():
+        for B in (1, van_batch):
+            for what, nets in (("fp32", (van, b3)), ("bf16", (van16, b3_16))):
+                xs = {n: preprocess_classifier(x[:B].to(dev), van_size, n.model.dtype) for n in nets}
+                t = interleaved_times_ms({n: functools.partial(n.model, xs[n]) for n in nets}, launches=10, repeats=3)
+                for n, name in zip(nets, ("van_b0", "efficientnet_b3")):
+                    forward_ms[f"{name} {what} B{B}"] = t[n][1]
+    log(f"classifier forward at {van_size}^2, ms (CUDA events, median of 3 repeats of 10, VAN and B3 in turns): "
+        f"{json.dumps({k: round(v, 4) for k, v in forward_ms.items()})} [{smi}]")
+    del van16, b3_16
+
+    # -- (b) every variant on the card with the JAX package's parameter count; the deep ones forward ----------------
+    counts = {}
+    for name, want in VAN_PARAMS.items():
+        m = create_model(name).to(dev)
+        counts[name] = sum(p.numel() for p in m.parameters())
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} parameters on the card, the JAX package has {want}")
+        if name in deep:
+            m.reset_parameters(torch.Generator().manual_seed(0))
+            xb = preprocess_classifier(x[:1].to(dev), van_size)
+            with torch.no_grad():
+                logits = m(xb)
+                ms = cuda_time_ms(lambda: m(xb), iters=5, warmup=2)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: non-finite logits on the card")
+            log(f"{name} ({len(m.block3)} blocks in stage 3) one {van_size}^2 forward {ms:.3f} ms, logits "
+                f"{logits.float().cpu().numpy().round(4).tolist()} [{smi}]")
+        del m
+    log(f"VAN b0-b6 built on the card with the JAX package's parameter counts: {json.dumps(counts)}")
+
+    # -- (c) the speed pipeline with VAN-B0, fp32 then bf16; frames/s beside B3's -------------------------------------
+    det = YOLO("yolo10s-seg", nc=1, seed=0, device=dev)
+    pipe = VideoSpeedPipeline(det, van, device_batch=8, imgsz=imgsz, crop_size=van_size)
+    conf, gap = pipeline_conf(pipe, clip)
+    n_batches = -(-len(clip) // pipe.device_batch)
+    proto_decode.launches = proto_decode.launches_bf16 = 0
+    out = pipe.process_frames(list(clip), fps=30.0, conf=conf)
+    sync()
+    got = (proto_decode.launches, proto_decode.launches_bf16)
+    summary = check_pipeline_output(out, len(clip), h0, w0)
+    log(f"main path (speed pipeline, YOLOv10-S seg and VAN-B0 at {van_size}^2, {len(clip)} frames, conf {conf:.6f} in a "
+        f"gap of {gap:.3g}): proto_decode launched {got[0]} times for {n_batches} batches; {json.dumps(summary)}")
+    if got != (n_batches, 0):
+        raise AssertionError(f"the VAN pipeline launched proto_decode {got}, not once a batch")
+    launches["proto_decode"] += got[0]
+    step = pipeline_step_numpy(pipe, clip[:8], 0.0)
+    cpu_crops = pipe._crops(torch.from_numpy(clip[:8]), torch.from_numpy(step["box"]))
+    p_step = van_cpu._forward(cpu_crops)[1].numpy()
+    step_err = float(np.abs(step["cls_prob"] - p_step).max())
+    log(f"VAN pipeline step (frames 0-7 at conf 0): the card's classifier vs the CPU's on the same crops, max abs "
+        f"{step_err:.3g} (tol {VAN_PROB_TOL})")
+    if not step_err <= VAN_PROB_TOL:
+        raise AssertionError("the VAN pipeline's classifier on the card disagrees with the CPU on the same crops")
+    pipe16 = VideoSpeedPipeline(YOLO("yolo10s-seg", nc=1, seed=0, dtype=BF16, device=dev),
+                                ClassifierNet("van_b0", input_size=van_size, seed=0, dtype=BF16, device=dev),
+                                device_batch=8, imgsz=imgsz, crop_size=van_size)
+    conf16, _ = pipeline_conf(pipe16, clip)
+    proto_decode.launches = proto_decode.launches_bf16 = 0
+    out16 = pipe16.process_frames(list(clip), fps=30.0, conf=conf16)
+    sync()
+    got16 = (proto_decode.launches, proto_decode.launches_bf16)
+    summary16 = check_pipeline_output(out16, len(clip), h0, w0)
+    s16 = pipeline_step_numpy(pipe16, clip[:8], 0.0)
+    crops16 = pipe16._crops(torch.from_numpy(clip[:8]).to(dev), torch.from_numpy(s16["box"]).to(dev))
+    step16_err = float(np.abs(s16["cls_prob"] - van._forward(crops16)[1].cpu().numpy()).max())
+    log(f"main path (speed pipeline, bf16 YOLOv10-S and bf16 VAN-B0, conf {conf16:.6f}): proto_decode_bf16 launched "
+        f"{got16[1]} times for {n_batches} batches; {json.dumps(summary16)}; its classifier vs the fp32 VAN on the "
+        f"same crops, max abs {step16_err:.3g} (tol {VAN_BF16_PROB_TOL})")
+    if got16 != (0, n_batches) or not step16_err <= VAN_BF16_PROB_TOL:
+        raise AssertionError("the bf16 VAN pipeline must launch proto_decode_bf16 once a batch and agree with fp32")
+    launches["proto_decode_bf16"] += got16[1]
+    pipe_b3 = VideoSpeedPipeline(det, b3, device_batch=8, imgsz=imgsz, crop_size=van_size)
+    runs = {}
+    for name, p in (("van_b0", pipe), ("efficientnet_b3", pipe_b3), ("efficientnet_b3 ", pipe_b3), ("van_b0 ", pipe)):
+        p.process_frames(list(clip), fps=30.0, conf=conf)                        # warm-up
+        runs.setdefault(name.strip(), []).extend(host_ms(lambda: p.process_frames(list(clip), fps=30.0, conf=conf)))
+    log(f"pipeline {len(clip)} frames {h0}x{w0}@{imgsz}, fp32, classifier in turns VAN-B0, B3, B3, VAN-B0 (3 calls "
+        f"each turn), frames/s: " + "; ".join(f"{n} median {len(clip) / np.median(v) * 1e3:.1f} "
+                                              f"({[round(t, 1) for t in v]} ms)" for n, v in runs.items()) + f" [{smi}]")
+    del pipe16, pipe_b3, b3
+
+    # -- (d) evaluate_speed --cls_model van_b0 --cls_init over the needle mp4 ----------------------------------------
+    if needle_mp4 is not None:
+        from yolo_puncture_tpu_torch.analytics.stats import compute_metrics
+        from yolo_puncture_tpu_torch.apps import evaluate_speed as es
+        from yolo_puncture_tpu_torch.utils.convert import export_classifier_state_dict
+
+        tree = van_variables(van.model)
+        sd = export_classifier_state_dict(tree)
+        if any(not np.array_equal(sd[k], v.float().cpu().numpy()) for k, v in van.model.state_dict().items()
+               if not k.endswith("num_batches_tracked")):
+            raise AssertionError("van_variables is not the inverse of export_classifier_state_dict")
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+            vdir, kf, msg = os.path.join(work, "videos"), os.path.join(work, "key_frames.json"), \
+                os.path.join(work, "van_b0.msgpack")
+            os.makedirs(vdir)
+            shutil.copy(needle_mp4, os.path.join(vdir, "video1.mp4"))
+            with open(kf, "w") as f:
+                json.dump({"1": [PIPE_KEY_FRAME, PIPE_KEY_FRAME + 20]}, f)
+            write_msgpack(tree, msg)
+            argv = ["-p", vdir, "-ym", "yolo10s-seg", "-yct", repr(conf), "--imgsz", str(imgsz), "--batch", "8",
+                    "--cls_model", "van_b0", "--cls_init", msg, "--crop_size", str(van_size), "--key_frames", kf]
+            proto_decode.launches = 0
+            t = time.perf_counter()
+            devs = es.main(argv, device=dev)
+            sync()
+            es_s, es_launches = time.perf_counter() - t, proto_decode.launches
+            ref = pipe.process_frames(list(decoded), fps=30.0, conf=conf, judge_wnd=20)
+            want = compute_metrics(ref.lens, (ref.start_frame, ref.end_frame or ref.start_frame + 1),
+                                   (PIPE_KEY_FRAME, PIPE_KEY_FRAME + 20), 30.0)
+            from_msg = ClassifierNet("van_b0", input_size=van_size, variables=msg, device="cpu")
+            msg_err = float(np.abs(from_msg._forward(x)[2].numpy() - p32).max())
+        log(f"main path (evaluate_speed --cls_model van_b0 --cls_init, the needle mp4 as video1.mp4): deviations "
+            f"{json.dumps(devs)} in {es_s:.1f} s, proto_decode launched {es_launches} times; the pipeline on the "
+            f"decoded frames gives {[round(float(v), 6) for v in want]}; the msgpack's classifier on the CPU vs the "
+            f"card's, max abs {msg_err:.3g}")
+        if list(devs) != ["video1"] or not np.allclose(devs["video1"], want, rtol=1e-9, atol=1e-9):
+            raise AssertionError("evaluate_speed with VAN-B0 disagrees with the pipeline on the decoded frames")
+        if es_launches != -(-len(decoded) // 8) or not msg_err <= VAN_PROB_TOL:
+            raise AssertionError("evaluate_speed must launch proto_decode once a batch and load the classifier whole")
+        launches["proto_decode"] += es_launches
+    del pipe, det
+
+    # -- (e) ClassifierFinetuner on VAN-B0 ----------------------------------------------------------------------------
+    ft_crops, ft_labels = brightness_crops(4 * van_batch, van_size, seed=41)
+
+    def make_van(device, model=None):
+        net = (ClassifierNet("van_b0", input_size=van_size, seed=0, device=device) if model is None else
+               types.SimpleNamespace(model=model, device=torch.device(device), input_size=van_size))
+        return ClassifierFinetuner(net, lr=5e-4, seed=0), (ft_crops, ft_labels), van_batch
+
+    def first_van(model, arrays, bs, device):
+        xx = torch.from_numpy(arrays[0]).to(device)
+        return model.patch_embed1.proj, model.patch_embed1.norm, [preprocess_classifier(xx[i:i + bs], van_size)
+                                                                  for i in range(0, len(xx) - bs + 1, bs)]
+
+    ft_batches = [(torch.from_numpy(ft_crops[i:i + van_batch]), torch.from_numpy(ft_labels[i:i + van_batch]))
+                  for i in range(0, len(ft_crops), van_batch)]
+    ft = finetune_case(smi, f"ClassifierFinetuner VAN-B0 {van_size}^2", make_van, ft_batches, first_van, dev,
+                       FT_LIMITS["van"], ft_steps)
+    del van, van_cpu
+
+    # -- (f) SAM vit_b: encoder and one decoder batch against the CPU; the generator; vit_l, vit_h -------------------
+    sam = build_sam("vit_b", img_size=sam_size, device=dev)
+    sam_cpu = copy.deepcopy(sam).cpu()
+    image = torch.from_numpy(np.random.default_rng(50).standard_normal((1, 3, sam_size, sam_size)).astype(np.float32))
+    emb = sam.encode_image(image.to(dev))
+    emb_cpu = sam_cpu.encode_image(image)
+    enc_err = float((emb.cpu() - emb_cpu).abs().max() / emb_cpu.abs().max())
+    side = int(round(sam_batch ** 0.5))
+    pts = torch.from_numpy(SamAutomaticMaskGenerator._grid(side)).float()[:, None]
+    ones = torch.ones(pts.shape[:2], dtype=torch.int64)
+    masks, iou = sam.decode_points(emb, pts.to(dev), ones.to(dev))
+    masks_cpu, iou_cpu = sam_cpu.decode_points(emb.cpu(), pts, ones)
+    dec_err = max(float((masks.cpu() - masks_cpu).abs().max() / masks_cpu.abs().max()),
+                  float((iou.cpu() - iou_cpu).abs().max() / iou_cpu.abs().max()))
+    log(f"SAM vit_b {sam_size}^2 on the card vs the CPU: embedding max abs {enc_err:.3g} of its largest value, "
+        f"decoder batch of {len(pts)} points (from the card's embedding) {dec_err:.3g} (tol {SAM_REL_TOL})")
+    if not (enc_err <= SAM_REL_TOL and dec_err <= SAM_REL_TOL):
+        raise AssertionError("SAM on the card disagrees with its CPU run")
+    del sam_cpu, emb_cpu, masks_cpu
+    sam_ms = {"vit_b decoder batch": cuda_time_ms(lambda: sam.decode_points(emb, pts.to(dev), ones.to(dev)),
+                                                  iters=5, warmup=2)}
+    del masks, emb
+    frame = seeded_frames(1, *sam_frame_hw, seed=51)[0][..., ::-1].copy()
+    kw = dict(points_per_side=points_per_side, points_per_batch=sam_batch, crop_n_layers=1,
+              crop_n_points_downscale_factor=2)
+    shift = shape_sam_for_masks(sam, frame, **kw)
+    first = SamAutomaticMaskGenerator(sam, **kw).generate(frame)               # warm-up, and the run compared
+    gen = SamAutomaticMaskGenerator(sam, **kw)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    kept = gen.generate(frame)
+    sync()
+    gen_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+    stages = {k: v["total_s"] for k, v in gen.timer.summary().items()}
+    device_s = sum(stages.get(k, 0.0) for k in ("resize", "encode", "decode"))
+    n_points = points_per_side ** 2 + 4 * max(1, points_per_side // 2) ** 2
+    log(f"main path (SamAutomaticMaskGenerator vit_b, crop_n_layers 1, downscale 2, {n_points} points on a "
+        f"{sam_frame_hw[0]}x{sam_frame_hw[1]} frame, 5 crops encoded once each; hypernetworks x{SAM_HYPER_GAIN}, "
+        f"IoU head shifted {shift:+.4f} so that {SAM_KEEP_SHARE:.0%} of the whole-frame crop's points pass): "
+        f"{gen_s:.3f} s a frame, {len(kept)} masks kept at the default thresholds, equal to the warm-up run's "
+        f"{same_sam_masks(kept, first)}; stages s {json.dumps(stages)} (resize, encode, decode wait for the card; "
+        f"filter, nms, paste are the host's), host share {1 - device_s / gen_s:.1%}; peak memory {peak:.2f} GiB "
+        f"[{smi}]")
+    if not (kept and same_sam_masks(kept, first)):
+        raise AssertionError("the generator kept no mask at the default thresholds, or its masks differ between "
+                             "two runs on the card")
+    for m in kept:
+        if m["segmentation"].shape != tuple(sam_frame_hw) or m["area"] != int(m["segmentation"].sum()):
+            raise AssertionError("a generated mask has the wrong shape or area")
+    del first, kept, gen
+    for variant in sam_types:
+        model = sam if variant == "vit_b" else None
+        if variant == "vit_l":
+            err_buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stderr(err_buf):
+                anns = segment_anything(frame, "vit_l", device=dev)
+            sync()
+            log(f"main path (segment_anything(frame, 'vit_l'), seeded weights): {len(anns)} masks in "
+                f"{time.perf_counter() - t:.1f} s, the build included; stderr: {err_buf.getvalue().strip()}")
+            if "WARNING: SAM checkpoint" not in err_buf.getvalue() or not all(
+                    a["segmentation"].shape == tuple(sam_frame_hw) for a in anns):
+                raise AssertionError("segment_anything did not warn of the missing checkpoint, or gave bad masks")
+        if model is None:
+            model = build_sam(variant, img_size=sam_size, device=dev)
+        img = image.to(dev)
+        emb = model.encode_image(img)
+        if not bool(torch.isfinite(emb).all()) or tuple(emb.shape) != (1, 256, sam_size // 16, sam_size // 16):
+            raise AssertionError(f"SAM {variant}: bad embedding {tuple(emb.shape)}")
+        sam_ms[variant] = cuda_time_ms(lambda: model.encode_image(img), iters=3, warmup=1)
+        flops, nbytes = sam_encoder_work(variant, sam_size)
+        bound, by = roofline_ms(f"SAM {variant} encoder {sam_size}^2, fp32 (TF32 off)", nbytes, flops, FP32_FLOP_PER_S)
+        log(f"SAM {variant} encoder {sam_size}^2: {sam_ms[variant]:.3f} ms (CUDA events, mean of 3), "
+            f"{flops / 1e12:.4f} TFLOP, bound {bound:.3f} ms by {by}: {bound / sam_ms[variant]:.1%} of it [{smi}]")
+        del model, emb
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    del sam
+    log(f"phase 3z (VAN, SAM): {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def sync() -> None:
     """Wait for the card (a no-op without one: the phases rehearse on the CPU)."""
     if torch.cuda.is_available():
@@ -3402,6 +3805,10 @@ def main() -> int:
     # -- 3y. int8: one convolution, predict, serve, the int8 ring, the bench's int8 modes ---------------------
     for k, n in int8_phase(smi, frames, needle_mp4, needle_decoded, serve_frames, pngs, queries, probs, track_frames,
                            track_masks, conf=conf, imgsz=imgsz).items():
+        launches[k] += n
+
+    # -- 3z. the rest of the model zoo: VAN (classifier, pipeline, evaluate_speed, fine-tuner) and SAM -----------
+    for k, n in zoo_phase(smi, clip, needle_decoded, needle_mp4, imgsz=imgsz).items():
         launches[k] += n
 
     # -- 4. the same calls on the CPU ------------------------------------------------------

@@ -5,7 +5,7 @@ against the same code on the CPU; the backward of the tracker's two kernels
 fine-tuners, ``yolo_cli calibrate`` / ``export`` and the bench's other modes
 (``chip_smoke.py`` phases 3t–3w at reduced sizes); the int8 convolution, int8
 ``predict`` and the int8-ring tracker against their CPU runs (phase 3y (a), (b),
-(d) at reduced sizes).
+(d) at reduced sizes); VAN and SAM (phase 3z at reduced sizes).
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -59,6 +59,8 @@ from chip_smoke import (
     pipeline_step_numpy,
     run_track_app,
     train_apps_phase,
+    write_mp4,
+    zoo_phase,
 )
 from yolo_puncture_tpu_torch.ops.kernels.decode_tail import decode_tail
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout
@@ -458,3 +460,24 @@ def test_int8_ring_tracker_on_the_card_matches_the_cpu(cuda):
     assert memory_readout.launches == counts[0] and decode_tail.launches > counts[1]
     np.testing.assert_allclose(out[gpu], out[cpu], rtol=0, atol=1e-3)
     assert gpu.memory.keys.dtype == torch.int8 and gpu.memory.write_pos == cpu.memory.write_pos
+
+
+@pytest.mark.gpu
+def test_van_and_sam_on_the_card_match_the_cpu(cuda, tmp_path):
+    """3z at reduced sizes: VAN-B0 at 96² (B 4) against the CPU, fp32 and bf16, every
+    variant's parameter count, b2's forward, the pipeline with VAN-B0 (``proto_decode``
+    once a batch), ``evaluate_speed --cls_model van_b0 --cls_init`` where cv2 can
+    write the mp4, the fine-tuner; SAM ``vit_b`` at 256² against the CPU and its
+    generator twice on a 180×320 frame."""
+    import importlib.util
+
+    clip = needle_clip(24, 180, 320, key_frame=8, seed=2)[0]
+    mp4 = decoded = None
+    if importlib.util.find_spec("cv2") is not None:
+        mp4 = str(tmp_path / "needle.mp4")
+        decoded = write_mp4(mp4, list(clip))
+    got = zoo_phase("gpu test", clip, decoded, mp4, imgsz=128, device=cuda, van_size=96, van_batch=4, ft_steps=12,
+                    deep=("van_b2",), sam_size=256, sam_frame_hw=(180, 320), sam_types=("vit_b",),
+                    points_per_side=8, sam_batch=16)
+    assert got["proto_decode"] > 0 and got["proto_decode_bf16"] > 0
+

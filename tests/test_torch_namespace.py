@@ -4,11 +4,8 @@ Code written against the JAX package (or the reference) imports names from the
 package's ``__init__`` files: the same imports must work on the port, the
 registry must hold the same model names, ``ops.letterbox`` must stay reachable
 as a module where the function shadows it, and ``Results.plot`` must draw the
-same pixels.  A copy of ``tests/test_utils_namespace.py`` for the port, minus
-the SAM names (``segment_anything``, ``show_anns``: ROADMAP item 12c).
-
-One difference is named, not hidden: the JAX package registers ``van_b0`` …
-``van_b6``, which the port has not ported (ROADMAP item 12b).
+same pixels.  A copy of ``tests/test_utils_namespace.py`` for the port, the SAM
+names (``segment_anything``, ``show_anns``) included.
 """
 
 import importlib
@@ -18,30 +15,19 @@ import pytest
 
 from tests.torch_parity import torch_single_thread  # noqa: F401  (autouse fixture)
 
-VAN = [f"van_b{i}" for i in range(7)]
-
 # every import of the JAX package's surface that raised ImportError on the port
 SURFACE = [
     ("yolo_puncture_tpu_torch.predict", ["YOLO", "Results", "parse_model_name", "Boxes", "Masks"]),
-    ("yolo_puncture_tpu_torch.utils", ["get_config"]),
-    ("yolo_puncture_tpu_torch.models", ["YOLOModel"]),
+    ("yolo_puncture_tpu_torch.utils", ["get_config", "segment_anything", "show_anns"]),
+    ("yolo_puncture_tpu_torch.models", ["YOLOModel", "VAN"]),
     ("yolo_puncture_tpu_torch.nn", ["Segment"]),
     ("yolo_puncture_tpu_torch.track", ["PropagationNetwork"]),
     ("yolo_puncture_tpu_torch", ["get_config", "create_model", "register_model", "list_models", "YOLO"]),
     ("yolo_puncture_tpu_torch.track.train", ["pyramid_channels_for"]),
 ]
 
-# each JAX __init__ and the names of it the port leaves out (with the ROADMAP item that brings them)
-LEFT_OUT = {
-    "": set(),
-    "predict": set(),
-    "models": {"VAN"},                                   # 12b
-    "nn": set(),
-    "ops": set(),
-    "utils": {"segment_anything", "show_anns"},          # 12c
-    "track": set(),
-    "train": set(),
-}
+# each JAX __init__ and the names of it the port leaves out: none since VAN and SAM came
+LEFT_OUT = {sub: set() for sub in ("", "predict", "models", "nn", "ops", "utils", "track", "train")}
 
 
 @pytest.mark.parametrize("module,names", SURFACE, ids=[m for m, _ in SURFACE])
@@ -54,21 +40,21 @@ def test_the_jax_packages_imports_work_on_the_port(module, names):
 @pytest.mark.parametrize("sub", sorted(LEFT_OUT))
 def test_each_init_exports_the_jax_names(sub):
     """Every public name a JAX ``__init__`` defines (its functions and classes,
-    and the names it serves lazily) is on the port's, but for those listed as
-    left out for a later slice."""
+    and the names it serves lazily) is on the port's (``LEFT_OUT`` lists none)."""
     jax_mod = importlib.import_module("yolo_puncture_tpu" + (f".{sub}" if sub else ""))
     port = importlib.import_module("yolo_puncture_tpu_torch" + (f".{sub}" if sub else ""))
     lazy = {"": {"YOLO"}, "utils": {"VideoReader", "sort_key"}}.get(sub, set())
     want = {n for n, v in vars(jax_mod).items() if not n.startswith("_") and callable(v)} | lazy
-    assert want > LEFT_OUT[sub]
+    assert want >= LEFT_OUT[sub] and want
     missing = sorted(n for n in want - LEFT_OUT[sub] if not hasattr(port, n))
     assert not missing, missing
 
 
-def test_registry_holds_the_jax_names_but_van():
-    """Right after each package is imported, in a fresh interpreter: a module
-    imported later may register more (the JAX package's ``models/sam.py`` adds
-    ``sam``)."""
+def test_registry_holds_the_jax_names():
+    """Right after each package is imported, in a fresh interpreter, the port's
+    registry holds exactly the JAX package's 71 names (``van_b0`` … ``van_b6``
+    among them); a module imported later may register more (both packages'
+    ``models/sam.py`` add ``sam``)."""
     import json
     import os
     import subprocess
@@ -81,8 +67,8 @@ def test_registry_holds_the_jax_names_but_van():
                          env={**os.environ, "PYTHONPATH": root, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
     jax_names, port_names = json.loads(out.stdout.strip().splitlines()[-1])
-    assert set(VAN) <= set(jax_names) and len(jax_names) == 71
-    assert port_names == [n for n in jax_names if n not in VAN]
+    assert {f"van_b{i}" for i in range(7)} <= set(jax_names) and len(jax_names) == 71
+    assert port_names == jax_names
 
 
 @pytest.mark.parametrize("name,kw,want", [
@@ -143,13 +129,12 @@ def test_all_reference_names_importable():
     for name in [
         "get_config", "get_coord_min_rect_len", "get_bi_min_rect_len",
         "get_coord_mask", "get_bi_mask", "create_roi_mask", "filter_masks",
-        "gaussian_smoothing", "savitzky_golay_smoothing",
+        "segment_anything", "show_anns", "gaussian_smoothing", "savitzky_golay_smoothing",
         "difference", "plot_speeds", "compute_metrics", "numpy2tensor",
         "crop_frame", "VideoReader", "sort_key", "load_config", "Config",
     ]:
         assert getattr(u, name) is not None
-    with pytest.raises(AttributeError):
-        u.segment_anything          # noqa: B018  (SAM, ROADMAP item 12c)
+    assert callable(u.segment_anything) and callable(u.show_anns)
 
 
 def test_reference_style_usage():

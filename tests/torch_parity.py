@@ -75,6 +75,8 @@ def seeded_jax_variables(module, example, seed: int = 0):
             return (0.1 * rng.standard_normal(shape)).astype(np.float32)
         if name == "var":
             return (0.5 + rng.uniform(0.0, 1.0, shape)).astype(np.float32)
+        if name.startswith("layer_scale"):     # VAN's: far above the init's 1e-2, so each block counts
+            return rng.uniform(0.2, 0.6, shape).astype(np.float32)
         raise KeyError(name)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
@@ -119,32 +121,63 @@ def calibrated_batch_stats(variables, model, inputs, key_of):
     return {**variables, "batch_stats": jax.tree_util.tree_map_with_path(stat, variables["batch_stats"])}
 
 
-def seeded_classifier_variables(variant: str, size: int, seed: int = 3):
-    """numpy variable tree of the JAX package's ``EfficientNet(variant)`` with
-    two classes: ``seeded_jax_variables`` with the BatchNorm statistics of
-    ``classifier_images(size)`` (``calibrated_batch_stats``)."""
+def seeded_classifier_variables(variant: str, size: int, seed: int = 3, family: str = "efficientnet"):
+    """numpy variable tree of the JAX package's ``EfficientNet(variant)`` (or, with
+    ``family="van"``, ``VAN(variant)``) with two classes: ``seeded_jax_variables``
+    with the BatchNorm statistics of ``classifier_images(size)``
+    (``calibrated_batch_stats``)."""
     import jax.numpy as jnp
 
     from yolo_puncture_tpu.models.efficientnet import EfficientNet
+    from yolo_puncture_tpu.models.van import VAN
     from yolo_puncture_tpu_torch.models.efficientnet import preprocess_classifier
     from yolo_puncture_tpu_torch.registry import create_model
     from yolo_puncture_tpu_torch.utils.convert import (
-        _FLAX_BLOCK,
-        _LEAF,
+        classifier_flax_path_to_torch_key,
         export_classifier_state_dict,
         load_classifier_state_dict,
     )
 
-    variables = seeded_jax_variables(EfficientNet(variant=variant, num_classes=2),
-                                     jnp.zeros((1, size, size, 3), jnp.float32), seed)
-    model = create_model(f"efficientnet_{variant}")
+    jmodule = {"efficientnet": EfficientNet, "van": VAN}[family](variant=variant, num_classes=2)
+    variables = seeded_jax_variables(jmodule, jnp.zeros((1, size, size, 3), jnp.float32), seed)
+    model = create_model(f"{family}_{variant}")
     load_classifier_state_dict(model, export_classifier_state_dict(variables))
-
-    def key_of(path, leaf):
-        return _FLAX_BLOCK.sub(lambda m: f"blocks.{m.group(1)}.{m.group(2)}.", ".".join(path) + ".") + _LEAF[leaf]
-
     images = preprocess_classifier(torch.from_numpy(classifier_images(size)), size)
-    return calibrated_batch_stats(variables, model, images, key_of)
+    return calibrated_batch_stats(variables, model, images, classifier_flax_path_to_torch_key)
+
+
+def sam_template(img_size: int):
+    """The JAX package's ``SAM("vit_b", img_size)`` variable tree as zeros (shapes
+    from ``jax.eval_shape``: nothing compiles), the template its converter fills."""
+    import jax
+    import jax.numpy as jnp
+
+    from yolo_puncture_tpu.models.sam import SAM
+
+    shapes = jax.eval_shape(SAM(variant="vit_b", img_size=img_size).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, img_size, img_size, 3)), jnp.zeros((1, 2, 2)), jnp.zeros((1, 2), jnp.int32))
+    return jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+
+
+def seeded_sam_variables(img_size: int, seed: int = 0):
+    """numpy variables of the JAX package's ``SAM("vit_b", img_size)``: LeCun
+    kernels, scales near 1, biases N(0, 0.1²), ``pos_embed`` N(0, 0.1²), rel-pos
+    tables N(0, 0.2²) (not the init's zeros, so the bias is exercised), embeddings,
+    tokens and the Fourier matrix N(0, 1)."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            return (rng.standard_normal(leaf.shape) / np.sqrt(np.prod(leaf.shape[:-1]))).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+        scale = {"bias": 0.1, "pos_embed": 0.1, "rel_pos_h": 0.2, "rel_pos_w": 0.2}.get(name, 1.0)
+        return (scale * rng.standard_normal(leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, sam_template(img_size))
 
 
 def unet_images(h: int, w: int, n: int = 3, seed: int = 5) -> np.ndarray:

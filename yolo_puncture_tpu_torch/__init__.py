@@ -2,7 +2,7 @@
 
 Mirrors the JAX package's layout so each counterpart is easy to find:
   nn/        conv/attention blocks and detection/segmentation heads (NCHW)
-  models/    YOLO v8/v10/v11 det+seg, EfficientNet, U²-Net
+  models/    YOLO v8/v10/v11 det+seg, EfficientNet, U²-Net, VAN; SAM (models/sam.py)
   ops/       letterbox, NMS / v10 top-k, mask decode and paste, contours
   ops/kernels/  hand-written CUDA kernels (sources in csrc/) with plain PyTorch versions
   predict/   ultralytics-compatible ``YOLO(weights).predict`` → Results / Boxes / Masks
@@ -11,7 +11,8 @@ Mirrors the JAX package's layout so each counterpart is easy to find:
   native/    host code in C++ (contours, min-area rectangle, RLE; PNG row filters), built with g++
   apps/      the entry points: track_video, auto_speed_calc, evaluate_speed, speed_freq, serve,
              app, webui, yolo_cli
-  utils/     weight bridge (JAX variables, ultralytics .pt), device choice, PNG writer and reader, plots
+  utils/     weight bridge (JAX variables, ultralytics .pt, segment-anything .pth), device choice,
+             PNG writer and reader, plots, segment_anything / show_anns
 
 The top level exports ``get_config``, ``create_model``, ``register_model``,
 ``list_models`` and ``YOLO``; importing the package registers every model name.

@@ -60,7 +60,8 @@ def main(argv=None, device=None):
                         help="flax msgpack detector variables loaded over the built model")
     parser.add_argument("--cls_init", default=None, help="flax msgpack classifier variables")
     parser.add_argument("--cls_model", default=None,
-                        help="classifier registry name override (e.g. efficientnet_b0 to match a --cls_init checkpoint)")
+                        help="classifier registry name override (e.g. efficientnet_b0 or van_b0 to match a --cls_init "
+                             "checkpoint)")
     parser.add_argument("--crop_size", type=int, default=None, help="classifier crop size override")
     args = parser.parse_args(argv)
 

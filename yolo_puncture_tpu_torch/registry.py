@@ -3,8 +3,9 @@
 Counterpart of ``yolo_puncture_tpu/registry.py`` (the reference's timm string
 dispatch, ``timm.create_model(name, num_classes=...)``).  Importing the package
 fills it: ``models/yolo.py`` registers the YOLO names, ``models/efficientnet.py``
-``efficientnet_b0`` … ``efficientnet_b7`` and ``models/u2net.py`` ``u2net`` and
-``u2netp``; the JAX package's ``van_b0`` … ``van_b6`` wait for ROADMAP item 12b.
+``efficientnet_b0`` … ``efficientnet_b7``, ``models/u2net.py`` ``u2net`` and
+``u2netp``, ``models/van.py`` ``van_b0`` … ``van_b6``: the JAX package's names.
+``models/sam.py`` adds ``sam`` when it is imported.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Insertion-state classifier task (EfficientNet, two classes: outside / inserted).
+"""Insertion-state classifier task (EfficientNet or VAN, two classes: outside / inserted).
 
 Counterpart of ``yolo_puncture_tpu/tasks/classify.py``:
   * ``ClassifierNet``: model, weights and the forward (resize where needed,
@@ -39,13 +39,13 @@ NUM_CLASSES = 2
 
 
 class ClassifierNet:
-    """A registered classifier with its weights on ``device`` and the
-    ``predict_images`` contract.
+    """A registered classifier (``efficientnet_b*``, ``van_b*``) with its weights
+    on ``device`` and the ``predict_images`` contract.
 
-    Weights: ``checkpoint``, a timm ``.pth.tar`` / ``.pth`` file; else
-    ``variables``, the JAX package's variable tree (``params`` + ``batch_stats``,
-    or the path of its flax msgpack file) or a timm-keyed state dict; else a
-    seeded random init from ``seed``.  dtype: the compute type, fp32 or bf16
+    Weights: ``checkpoint``, a timm ``.pth.tar`` / ``.pth`` file (or a published
+    VAN one); else ``variables``, the JAX package's variable tree (``params`` +
+    ``batch_stats``, or the path of its flax msgpack file) or a torch-keyed state
+    dict; else a seeded random init from ``seed``.  dtype: the compute type, fp32 or bf16
     (the softmax stays fp32).  device: ``None`` (the card) or ``"cpu"``.
     """
 

@@ -13,8 +13,9 @@ Counterpart of ``yolo_puncture_tpu/train/finetune.py``:
     mean and biased variance.
 
 The models train with flax's BatchNorm (``nn/common.py BatchNorm2d``: the batch's
-biased variance in the running statistics, EfficientNet's momentum 0.99 and
-U²-Net's 0.9 as the JAX package sets them).  ``fit_arrays`` visits the batches in
+biased variance in the running statistics, EfficientNet's momentum 0.99, VAN's and
+U²-Net's 0.9 as the JAX package sets them).  VAN has no dropout: its ``forward``
+takes the fine-tuner's generator and ignores it.  ``fit_arrays`` visits the batches in
 the order of ``numpy.random.default_rng(seed).permutation``, as the JAX package
 does.  The classifier's head dropout draws its mask from a ``torch.Generator``
 seeded with ``seed``, once a step (the JAX package folds the step into

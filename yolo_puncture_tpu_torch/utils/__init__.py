@@ -1,7 +1,7 @@
 """Utils namespace: the reference's function surface (``yolo_seg/utils/__init__.py``)
 under the same names, as the JAX package's ``utils`` exports it, so code written
 against the reference can swap its imports.  ``segment_anything`` and
-``show_anns`` come with SAM (ROADMAP item 12c)."""
+``show_anns`` import SAM (``utils/sam_wrapper.py``) when they are called."""
 
 from yolo_puncture_tpu_torch.utils.config import Config, get_config, load_config  # noqa: F401
 from yolo_puncture_tpu_torch.ops.geometry import (  # noqa: F401
@@ -31,6 +31,18 @@ def numpy2tensor(frame):
     return np.transpose(rgb, (2, 0, 1))
 
 
+def segment_anything(*args, **kwargs):
+    from yolo_puncture_tpu_torch.utils.sam_wrapper import segment_anything as _sa
+
+    return _sa(*args, **kwargs)
+
+
+def show_anns(*args, **kwargs):
+    from yolo_puncture_tpu_torch.utils.sam_wrapper import show_anns as _sh
+
+    return _sh(*args, **kwargs)
+
+
 def __getattr__(name):
     # VideoReader and sort_key live in pipeline/, which imports this package
     if name in ("VideoReader", "sort_key"):
@@ -50,6 +62,8 @@ __all__ = [
     "get_bi_mask",
     "create_roi_mask",
     "filter_masks",
+    "segment_anything",
+    "show_anns",
     "gaussian_smoothing",
     "savitzky_golay_smoothing",
     "difference",

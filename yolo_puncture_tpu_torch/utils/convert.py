@@ -23,11 +23,19 @@ maps the tracker's variable tree onto ``track/network.py PropagationNetwork``:
 the port's modules carry the flax attribute names and concatenate channels in
 the JAX package's order, so the map is HWIO → OIHW plus the BatchNorm leaf names.
 ``export_classifier_state_dict`` maps the JAX package's EfficientNet variables
-onto timm's keys (``blocks_{s}_{i}`` → ``blocks.{s}.{i}``), the keys the port's
-``models/efficientnet.py`` carries, so a timm checkpoint and a JAX variable tree
-load through the same ``load_classifier_state_dict``.  ``export_u2net_state_dict``
+onto timm's keys (``blocks_{s}_{i}`` → ``blocks.{s}.{i}``) and its VAN variables
+onto the published VAN keys (``block{s}_{i}`` → ``block{s}.{i}``, ``mlp.dwconv`` →
+``mlp.dwconv.dwconv``), the keys the port's ``models/efficientnet.py`` and
+``models/van.py`` carry, so a checkpoint and a JAX variable tree load through the
+same ``load_classifier_state_dict``.  ``export_u2net_state_dict``
 maps the JAX package's U²-Net variables onto the reference's torch names, which
 ``models/u2net.py`` carries.
+
+``export_sam_state_dict`` maps the JAX package's SAM variables onto
+segment-anything's keys, which ``models/sam.py`` carries (the inverse of the JAX
+package's ``_SAM_RENAMES`` and of its ConvTranspose flip), and
+``load_sam_state_dict`` loads such a dict or a released ``sam_vit_*.pth``
+strictly, interpolating ``pos_embed`` and the rel-pos tables to another image size.
 
 The other way: ``yolo_variables`` turns a YOLO state dict back into the JAX
 package's flax variables and ``tracker_variables`` a ``PropagationNetwork``
@@ -535,31 +543,48 @@ def load_tracker_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> No
 
 
 # ---------------------------------------------------------------------------
-# Classifier variables → timm-keyed EfficientNet state dict
+# Classifier variables → timm-keyed EfficientNet and published-keyed VAN state dicts
 # ---------------------------------------------------------------------------
 
 _FLAX_BLOCK = re.compile(r"(?:^|(?<=\.))blocks_(\d+)_(\d+)\.")
+_FLAX_VAN_BLOCK = re.compile(r"(?:^|(?<=\.))block(\d+)_(\d+)\.")
+_FLAX_VAN_DWCONV = re.compile(r"(?:^|(?<=\.))dwconv\.")
+
+
+def classifier_flax_path_to_torch_key(path: Tuple[str, ...], leaf: str) -> str:
+    """flax module path + leaf → the classifier's torch key: EfficientNet's
+    ``blocks_{s}_{i}`` → ``blocks.{s}.{i}``; VAN's ``block{s}_{i}`` → ``block{s}.{i}``
+    and its MLP's ``dwconv`` → ``dwconv.dwconv`` (the published ``DWConv`` wraps
+    its convolution); a leaf that is not a kernel, scale, bias or statistic (VAN's
+    ``layer_scale_1``) keeps its name."""
+    key = ".".join(path) + "."
+    key = _FLAX_BLOCK.sub(lambda m: f"blocks.{m.group(1)}.{m.group(2)}.", key)
+    key = _FLAX_VAN_BLOCK.sub(lambda m: f"block{m.group(1)}.{m.group(2)}.", key)
+    key = _FLAX_VAN_DWCONV.sub("dwconv.dwconv.", key)
+    return (key if path else "") + _LEAF.get(leaf, leaf)
 
 
 def export_classifier_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
-    """The JAX package's EfficientNet variables (``params`` + ``batch_stats``)
-    → timm-keyed state dict of numpy arrays: conv kernels HWIO → OIHW (a
-    depthwise ``(k, k, 1, C)`` becomes ``(C, 1, k, k)``), Dense ``(in, out)`` →
-    ``(out, in)``, ``scale`` → ``weight``, ``mean`` / ``var`` → ``running_*``."""
+    """The JAX package's EfficientNet or VAN variables (``params`` +
+    ``batch_stats``) → timm-keyed (EfficientNet) or published-keyed (VAN) state
+    dict of numpy arrays: conv kernels HWIO → OIHW (a depthwise ``(k, k, 1, C)``
+    becomes ``(C, 1, k, k)``), Dense ``(in, out)`` → ``(out, in)``, ``scale`` →
+    ``weight`` (BatchNorm and LayerNorm), ``mean`` / ``var`` → ``running_*``,
+    VAN's layer scales as they are (``classifier_flax_path_to_torch_key``)."""
     out: Dict[str, np.ndarray] = {}
     for tree in (variables["params"], variables.get("batch_stats", {})):
         for path, arr in _flatten(tree).items():
             a = np.asarray(arr)
             if path[-1] == "kernel":
                 a = np.ascontiguousarray(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
-            key = _FLAX_BLOCK.sub(lambda m: f"blocks.{m.group(1)}.{m.group(2)}.", ".".join(path[:-1]) + ".")
-            out[key + _LEAF[path[-1]]] = a
+            out[classifier_flax_path_to_torch_key(path[:-1], path[-1])] = a
     return out
 
 
 def load_classifier_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
-    """Load a timm-keyed state dict (numpy or torch values; a timm checkpoint or
-    ``export_classifier_state_dict``'s output) into the port's EfficientNet.
+    """Load a timm-keyed (EfficientNet) or published-keyed (VAN) state dict (numpy
+    or torch values; a checkpoint or ``export_classifier_state_dict``'s output)
+    into the port's classifier.
     Strict: every parameter and running statistic must be present and every key
     used; only BatchNorm's ``num_batches_tracked`` may be absent or extra."""
     tensors = {k: torch.tensor(np.asarray(v)) for k, v in sd.items() if not k.endswith("num_batches_tracked")}
@@ -589,3 +614,107 @@ def export_u2net_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
                 a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
             out[".".join(path[:-1]) + "." + _LEAF[path[-1]]] = a
     return out
+
+
+# ---------------------------------------------------------------------------
+# SAM: JAX variables → segment-anything keys; checkpoints into the port's SAM
+# ---------------------------------------------------------------------------
+
+# the JAX package's flax paths (dotted) → segment-anything's keys: the inverse of its _SAM_RENAMES
+_SAM_EXPORT = [
+    (re.compile(r"^image_encoder\.patch_embed_proj\."), "image_encoder.patch_embed.proj."),
+    (re.compile(r"^image_encoder\.block_(\d+)\.mlp_fc(\d)\."), r"image_encoder.blocks.\1.mlp.lin\2."),
+    (re.compile(r"^image_encoder\.block_(\d+)\."), r"image_encoder.blocks.\1."),
+    (re.compile(r"^image_encoder\.neck_conv1\."), "image_encoder.neck.0."),
+    (re.compile(r"^image_encoder\.neck_ln1\."), "image_encoder.neck.1."),
+    (re.compile(r"^image_encoder\.neck_conv2\."), "image_encoder.neck.2."),
+    (re.compile(r"^image_encoder\.neck_ln2\."), "image_encoder.neck.3."),
+    (re.compile(r"^prompt_encoder\.point_embeddings_(\d)\."), r"prompt_encoder.point_embeddings.\1."),
+    (re.compile(r"^prompt_encoder\.md_conv1\."), "prompt_encoder.mask_downscaling.0."),
+    (re.compile(r"^prompt_encoder\.md_ln1\."), "prompt_encoder.mask_downscaling.1."),
+    (re.compile(r"^prompt_encoder\.md_conv2\."), "prompt_encoder.mask_downscaling.3."),
+    (re.compile(r"^prompt_encoder\.md_ln2\."), "prompt_encoder.mask_downscaling.4."),
+    (re.compile(r"^prompt_encoder\.md_conv3\."), "prompt_encoder.mask_downscaling.6."),
+    (re.compile(r"^mask_decoder\.layers_(\d+)\.mlp_lin(\d)\."), r"mask_decoder.transformer.layers.\1.mlp.lin\2."),
+    (re.compile(r"^mask_decoder\.layers_(\d+)\."), r"mask_decoder.transformer.layers.\1."),
+    (re.compile(r"^mask_decoder\.(final_attn_token_to_image|norm_final_attn)\."), r"mask_decoder.transformer.\1."),
+    (re.compile(r"^mask_decoder\.up1\."), "mask_decoder.output_upscaling.0."),
+    (re.compile(r"^mask_decoder\.up_ln\."), "mask_decoder.output_upscaling.1."),
+    (re.compile(r"^mask_decoder\.up2\."), "mask_decoder.output_upscaling.3."),
+    (re.compile(r"^mask_decoder\.hyper_(\d)\.layers_(\d)\."), r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2."),
+    (re.compile(r"^mask_decoder\.iou_head\.layers_(\d)\."), r"mask_decoder.iou_prediction_head.layers.\1."),
+]
+_SAM_TOKENS = ("iou_token", "mask_tokens")      # direct flax parameters, nn.Embedding weights in torch
+
+
+def sam_flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+    """A leaf's flax path in the JAX package's SAM variables → segment-anything's key."""
+    *mods, leaf = path
+    if leaf in _SAM_TOKENS:
+        mods, leaf = mods + [leaf], "weight"
+    key = ".".join(mods) + "."
+    for pattern, repl in _SAM_EXPORT:
+        key = pattern.sub(repl, key)
+    return key + {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+
+
+def export_sam_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's SAM variables (``params``) → a segment-anything state dict
+    of numpy arrays, the inverse of its ``convert_sam_state_dict``: Dense kernels
+    ``(in, out)`` → ``(out, in)``, conv kernels HWIO → OIHW, the ``ConvTranspose``
+    kernels of the upscaling flipped back spatially and laid out ``(I, O, kh, kw)``
+    (flax's ConvTranspose cross-correlates the dilated input where torch's
+    convolves), LayerNorm ``scale`` → ``weight``, the tokens as embedding weights."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(variables["params"]).items():
+        a = np.asarray(arr)
+        if path[-1] == "kernel":
+            if a.ndim == 4 and path[-2] in ("up1", "up2"):
+                a = np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+            elif a.ndim == 4:
+                a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+            else:
+                a = np.ascontiguousarray(a.T)
+        out[sam_flax_path_to_torch_key(path)] = a
+    return out
+
+
+def resize_sam_pos_embed(arr: np.ndarray, target_shape) -> np.ndarray:
+    """(1, g0, g0, C) → (1, g, g, C), bicubic (the ViT convention), as the JAX
+    package's ``_sam_resize_pos_embed`` loads a 1024² checkpoint at another size."""
+    import torch.nn.functional as F
+
+    t = torch.from_numpy(np.asarray(arr, np.float32)).permute(0, 3, 1, 2)
+    t = F.interpolate(t, size=tuple(target_shape[1:3]), mode="bicubic", align_corners=False)
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+def resize_sam_rel_pos(arr: np.ndarray, target_len: int) -> np.ndarray:
+    """(L0, hd) → (L, hd), linear: segment-anything's ``get_rel_pos`` rescale, as
+    the JAX package's ``_sam_resize_rel_pos``."""
+    import torch.nn.functional as F
+
+    t = torch.from_numpy(np.asarray(arr, np.float32))
+    t = F.interpolate(t.reshape(1, t.shape[0], -1).permute(0, 2, 1), size=target_len, mode="linear")
+    return t.reshape(-1, target_len).permute(1, 0).numpy()
+
+
+def load_sam_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+    """Load a segment-anything state dict (a released ``sam_vit_*.pth``, or
+    ``export_sam_state_dict``'s output) into the port's ``SAM``, strictly: every
+    key present and used.  A ``pos_embed`` or rel-pos table of another size (a
+    1024² checkpoint in a model of another ``img_size``) is interpolated; any
+    other shape that differs raises."""
+    own = model.state_dict()
+    tensors = {}
+    for key, value in sd.items():
+        a = np.asarray(value.detach().cpu().float() if isinstance(value, torch.Tensor) else value, np.float32)
+        want = tuple(own[key].shape) if key in own else a.shape
+        if a.shape != want and key.endswith("pos_embed"):
+            a = resize_sam_pos_embed(a, want)
+        elif a.shape != want and key.endswith(("rel_pos_h", "rel_pos_w")):
+            a = resize_sam_rel_pos(a, want[0])
+        tensors[key] = torch.from_numpy(np.ascontiguousarray(a))
+    missing, unexpected = model.load_state_dict(tensors, strict=False)
+    if missing or unexpected:
+        raise ValueError(f"state dict does not fit SAM: missing {missing[:8]}, unexpected {list(unexpected)[:8]}")
