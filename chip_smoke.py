@@ -257,6 +257,24 @@ def cuda_time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def backward_ms(out, d_out, iters: int = 20, warmup: int = 3) -> tuple:
+    """(device ms, host enqueue ms) a ``out.backward(d_out)``: CUDA events around
+    back-to-back backward calls, and the host's clock around the same calls up to
+    the last launch.  Near-equal numbers mean the host's launches set the pace."""
+    for _ in range(warmup):
+        out.backward(d_out, retain_graph=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        out.backward(d_out, retain_graph=True)
+    end.record()
+    host = (time.perf_counter() - t) * 1e3 / iters
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host
+
+
 def graph_time_ms(make, launches: int = 20, replays: int = 10) -> float:
     """Mean device time of ``fn = make()`` replayed from a CUDA graph of ``launches``
     calls: no host launch cost and no gap between kernels, which at 10 us a kernel
@@ -1757,12 +1775,13 @@ def polygon_batch(B, S, seed, max_boxes=32):
 
 
 def train_tracker_phase(smi: str, steps=TRACK_TRAIN_STEPS, window_steps=TRACK_WINDOW_STEPS, argv=None,
-                        device=None) -> dict:
+                        device=None, timings=None) -> dict:
     """3q: ``PropagationTrainer`` as ``apps/train_tracker.py`` builds it with its
     defaults (256², clips of 4, 4 objects, batch 8, a ring of 4 written every
     frame, long-term off, ``--clips mixed``, seeded init) on the card: one step's
     loss and gradients against the port's CPU run of the same batch, then timed
-    steps per frame and with ``window_mix`` 0.5.  Returns the kernels' launches."""
+    steps per frame and with ``window_mix`` 0.5 (their ms a step and peak memory
+    into ``timings``, where given).  Returns the kernels' launches."""
     import copy
 
     from yolo_puncture_tpu_torch.apps import train_tracker as tt_app
@@ -1803,7 +1822,7 @@ def train_tracker_phase(smi: str, steps=TRACK_TRAIN_STEPS, window_steps=TRACK_WI
     launches["memory_readout"] += step_launches[0]
     launches["decode_tail"] += step_launches[1]
     del cpu_core, cpu_trainer
-    trainer.opt.step()
+    trainer.update()
     for name, mix, n in (("per-frame", 0.0, steps), ("window_mix 0.5", 0.5, window_steps)):
         trainer.window_mix = mix
         if mix and trainer.window_loss_fn is None:
@@ -1812,14 +1831,17 @@ def train_tracker_phase(smi: str, steps=TRACK_TRAIN_STEPS, window_steps=TRACK_WI
             trainer.window_loss_fn = ttrain.build_windowed_propagation_loss(tcore, 3)
         mr.memory_readout.launches = dt.decode_tail.launches = 0
         torch.cuda.synchronize()
+        peak_reset()
         t = time.perf_counter()
         last = trainer.fit(steps=n, log_every=0)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3 / n
+        if timings is not None:
+            timings[f"tracker {name}"] = {"ms": ms, "peak_gib": peak_gib()}
         got = (mr.memory_readout.launches / n, dt.decode_tail.launches / n)
         log(f"main path (tracker training, {name}): {n} steps, {ms:.1f} ms a step, "
-            f"{targs.batch * 1e3 / ms:.1f} clips/s; launches a step (memory_readout, decode_tail) {got}; last loss "
-            f"{last:.6f} [{smi}]")
+            f"{targs.batch * 1e3 / ms:.1f} clips/s, peak memory {peak_gib():.2f} GiB; launches a step "
+            f"(memory_readout, decode_tail) {got}; last loss {last:.6f} [{smi}]")
         if not (np.isfinite(last) and min(got) > 0):
             raise AssertionError(f"tracker training ({name}): loss {last}, launches {got}")
         launches["memory_readout"] += mr.memory_readout.launches
@@ -1828,11 +1850,11 @@ def train_tracker_phase(smi: str, steps=TRACK_TRAIN_STEPS, window_steps=TRACK_WI
 
 
 def train_detector_phase(smi: str, imgsz: int = 640, batch: int = DET_TRAIN_B, steps: int = DET_TRAIN_STEPS,
-                         model: str = "yolo10s-seg", device=None) -> None:
+                         model: str = "yolo10s-seg", device=None) -> dict:
     """3r: the detector's ``Trainer`` on YOLOv10-S seg (published widths and depth,
     one class) at 640² on a synthetic batch of polygons: one step's losses and
     gradients at B 2 against the port's CPU run, then ``steps`` timed steps at
-    ``batch`` (ms a step, images/s, peak memory)."""
+    ``batch`` (ms a step, images/s, peak memory), which it returns."""
     import copy
 
     from yolo_puncture_tpu_torch import YOLO
@@ -1874,6 +1896,7 @@ def train_detector_phase(smi: str, imgsz: int = 640, batch: int = DET_TRAIN_B, s
         f"{batch * 1e3 / ms:.1f} images/s, peak memory {peak:.2f} GiB; totals {[round(v, 3) for v in totals]} [{smi}]")
     if not all(np.isfinite(totals)):
         raise AssertionError("detector training gave a loss that is not finite")
+    return {"ms": ms, "peak_gib": peak}
 
 
 def train_apps_phase(tmp: str, imgsz: int = 640, device=None, tracker_argv=(), model: str = "yolo10s-seg") -> dict:
@@ -3247,6 +3270,496 @@ def zoo_phase(smi: str, clip, decoded=None, needle_mp4=None, imgsz: int = 640, d
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 3za: bf16 training — fp32 master weights, bf16 compute — in every trainer
+# ---------------------------------------------------------------------------
+
+# The kernels' bf16 backward (``MemoryReadout``, ``DecodeTail``) against float64 gradients of the dense
+# functions on the same bf16 values: per gradient ‖g − g64‖ ≤ R · 2^-8 · ‖g64‖, R the bf16 roundings on
+# the longest path from the output's cotangent to the gradient, each at most half an ulp (2^-9) of what
+# it rounds, counted twice (sums of terms of either sign).  Readout 6: the weights p, their sum l and
+# the unnormalised readout l's cotangent takes, dP, the final dq / dk or dv, the bf16 cotangent.  Tail
+# 20: 9 in the recomputed forward (two packed kernels, two convolutions, two SiLUs, the skip, the head's
+# weights and its product) and 11 in the backward (the cotangent, the head, two SiLUs, two
+# convolutions' input and weight gradients, the casts to the raw weights).  And at least BF16_RAN_REL
+# from the fp32 Function's gradients of the same values, so that a backward that ran in fp32 fails.
+BF16_GRAD_ROUNDINGS = {"memory_readout": 6, "decode_tail": 20}
+BF16_RAN_REL = 2.0 ** -12
+# bf16 against fp32 on the card, the same weights and batch, as relative L1 distances (Σ|a − b| / Σ|b|):
+# D is the CPU's distance for the same configuration and seeds (scripts/bf16_train_limits_torch.py,
+# run before the card's; PERF.md §6).  The card's must lie within BF16_DISTANCE_BAND of D:
+# below twice it (two bf16 roundings of one network in another summation order differ by about √2 of
+# one, tests/test_torch_bf16.py DIRECT) and above a quarter of it (a run that fell back to fp32 sits
+# near 1e-6).  The tracker's loss is held by the upper limit alone (its distance is a few 1e-5).
+BF16_CPU_DISTANCE = {"tracker_loss": 6.78e-05, "tracker_grads": 0.003658, "detector_maps": 0.08500,
+                     "detector_grads": 0.5129, "u2netp_maps": 0.001560}
+BF16_DISTANCE_BAND = (0.25, 2.0)
+# The band cannot fail a broken detector backward: the gradient of the maps' random projection is
+# mostly rounding noise between bf16 and fp32 (a random-init train-mode network amplifies each
+# rounding), and an all-zero gradient reads 1.0.  So
+# each top-level block's gradient g (``model.N``) is held against fp32's f besides: its scale along f,
+# ⟨g, f⟩ / ‖f‖², within DET_GRAD_SCALE (noise across f leaves it alone) and its cosine to f at least
+# DET_GRAD_COS.  Both are read on the CPU by scripts/bf16_train_limits_torch.py --det-size (PERF.md
+# §6); there a zero or half-scale gradient, one block's zeroed, 30 % of the signs flipped,
+# SiLU's backward as σ alone and BatchNorm's without its statistics' terms all fail (--mutations).
+DET_GRAD_SCALE = (0.6, 1.5)
+DET_GRAD_COS = 0.6
+DET_MAP_KEYS = ("box_feats", "cls_feats", "coeff_feats", "one2one_box_feats", "one2one_cls_feats")
+
+
+def rel_l1(got, ref) -> float:
+    """Σ|got − ref| / Σ|ref| over lists of tensors, in float64."""
+    num = sum(float((a.double() - b.double().to(a.device)).abs().sum()) for a, b in zip(got, ref))
+    return num / sum(float(b.double().abs().sum()) for b in ref)
+
+
+def hold_distance(what: str, got: float, key: str, floor: bool = True) -> None:
+    ref = BF16_CPU_DISTANCE[key]
+    lo, hi = BF16_DISTANCE_BAND
+    log(f"{what}: bf16 against fp32 {got:.4g} (the CPU's {ref:.4g}; band {lo * ref:.4g}–{hi * ref:.4g}"
+        f"{'' if floor else ', upper limit only'})")
+    if not (got <= hi * ref and (not floor or got >= lo * ref)):
+        raise AssertionError(f"{what}: bf16 {got:.4g} from fp32, outside {lo}–{hi} × the CPU's {ref:.4g}")
+
+
+def detector_grad_blocks(g16: dict, g32: dict) -> dict:
+    """Per top-level block (``model.N``) of two gradient trees: g16's scale along
+    g32, ⟨g16, g32⟩ / ‖g32‖², and its cosine to g32, in float64."""
+    blocks = {}
+    for n in g32:
+        a, b = blocks.setdefault(".".join(n.split(".")[:2]), ([], []))
+        a.append(g16[n].double().flatten().cpu())
+        b.append(g32[n].double().flatten().cpu())
+    out = {}
+    for k, (a, b) in blocks.items():
+        a, b = torch.cat(a), torch.cat(b)
+        out[k] = (float(a @ b / (b @ b)), float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)))
+    return out
+
+
+def hold_detector_grads(what: str, g16: dict, g32: dict) -> dict:
+    """The detector's bf16 gradients against fp32's: the relative L1 band
+    (``hold_distance``) and, in every block, DET_GRAD_SCALE and DET_GRAD_COS."""
+    rel = rel_l1(list(g16.values()), [g32[n] for n in g16])
+    blocks = detector_grad_blocks(g16, g32)
+    scales, coss = [a for a, _ in blocks.values()], [c for _, c in blocks.values()]
+    lo, hi = DET_GRAD_SCALE
+    log(f"{what}: per block ({len(blocks)}) scale along fp32's {min(scales):.4f}–{max(scales):.4f} (limits {lo}–{hi}), "
+        f"cosine at least {min(coss):.4f} (limit {DET_GRAD_COS})")
+    hold_distance(what, rel, "detector_grads")
+    bad = {k: v for k, v in blocks.items() if not (lo <= v[0] <= hi and v[1] >= DET_GRAD_COS)}
+    if bad:
+        raise AssertionError(f"{what}: blocks (scale, cosine) outside {lo}–{hi} or below {DET_GRAD_COS}: {bad}")
+    return {"rel_l1": rel, "scale": (min(scales), max(scales)), "min_cos": min(coss)}
+
+
+def kept_fp32_bytes(module) -> int:
+    """Bytes of the fp32 values that ``module``'s bf16 weights keep
+    (``fp32_value``, which raises where one has none)."""
+    from yolo_puncture_tpu_torch.nn.common import fp32_value
+
+    return sum(4 * fp32_value(p, required=True).numel() for p in module.parameters() if p.dtype == BF16)
+
+
+def peak_reset() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if torch.cuda.is_available() else float("nan")
+
+
+def assert_fp32_masters(what, weights, opt, ema=None) -> None:
+    """After a bf16 step: every master, optimizer buffer and EMA leaf fp32, the
+    model's weights the masters rounded (``nn/common.py MasterWeights``)."""
+    if not weights.pairs:
+        raise AssertionError(f"{what}: the model has no bf16 weight")
+    for p, m in weights.pairs:
+        if m.dtype != torch.float32 or not torch.equal(p.detach(), m.detach().to(p.dtype)):
+            raise AssertionError(f"{what}: a bf16 weight is not its fp32 master rounded")
+    for st in opt.state.values():
+        for v in st.values():
+            if isinstance(v, torch.Tensor) and v.numel() > 1 and v.dtype != torch.float32:
+                raise AssertionError(f"{what}: an optimizer buffer is {v.dtype}")
+    if any(v.dtype != torch.float32 for v in (ema or {}).values()):
+        raise AssertionError(f"{what}: an EMA leaf is not fp32")
+
+
+def bf16_tracker_pair(targs, device):
+    """``apps/train_tracker.py``'s trainer (seeded init) and the same trainer on a
+    bf16 ``TrackerCore`` holding its fp32 weights."""
+    from yolo_puncture_tpu_torch.apps import train_tracker as tt_app
+    from yolo_puncture_tpu_torch.track import TrackerCore
+    from yolo_puncture_tpu_torch.track import train as ttrain
+
+    core32, tr32 = tt_app.build_trainer(targs, device)
+    core16 = TrackerCore(variables={k: v.cpu() for k, v in core32.net.state_dict().items()}, dtype=BF16,
+                         image_size=core32.image_size, max_objects=core32.max_objects, mem_frames=4, mem_every=1,
+                         enable_long_term=False, device=core32.device)
+    tr16 = ttrain.PropagationTrainer(core16, lr=targs.lr, clip_len=targs.clip_len, batch_size=targs.batch,
+                                     clip_fn=tr32.clip_fn)
+    return tr32, tr16
+
+
+def bf16_tracker_step_distance(tr32, tr16, batch, counts=None) -> dict:
+    """One step's loss and master gradients of both trainers on ``batch``: the
+    relative loss distance and the gradients' relative L1 distance.  ``counts``
+    (zeroes the kernels' counts, returns them) brackets the bf16 step alone."""
+    l32 = tr32.loss_and_grads(*batch)
+    if counts:
+        sync()
+        counts()
+    l16 = tr16.loss_and_grads(*batch)
+    if counts:
+        sync()
+    return {"loss": abs(l16 - l32) / abs(l32), "grads": rel_l1([p.grad for p in tr16.params],
+                                                               [p.grad for p in tr32.params]),
+            "loss32": l32, "loss16": l16, "launches": counts() if counts else None}
+
+
+def detector_head_vjp(model, images, seed: int = 70):
+    """The train-mode head maps of ``model`` (fp32 copies) on ``images`` (B, S,
+    S, 3) and the fp32 master gradients (by name) of Σ c · maps for a seeded normal
+    cotangent c: the trainer's network in bf16 without the assigner, whose
+    discrete choices make the loss jump where rounding moves a box."""
+    from yolo_puncture_tpu_torch.nn.common import MasterWeights
+
+    weights = MasterWeights(model)
+    for p in weights.masters:
+        p.grad = None
+    model.train()
+    out = model(images)
+    maps = [o.float() for k in DET_MAP_KEYS if k in out for o in out[k]] + [out["proto"].float()]
+    gen = torch.Generator().manual_seed(seed)
+    loss = sum((m * torch.randn(m.shape, generator=gen).to(m.device)).sum() for m in maps)
+    loss.backward()
+    weights.collect_grads()
+    model.eval()
+    return [m.detach() for m in maps], {n: p.grad for n, p in weights.named.items()}
+
+
+def u2netp_maps(dtype, size, device, seed=31):
+    """The seven maps of a seeded U2NETP (``UNetPredictor``) in ``dtype`` on two
+    bar images of ``size``²."""
+    from yolo_puncture_tpu_torch.tasks import UNetPredictor
+
+    images, _ = bar_masks(2, size, seed)
+    pred = UNetPredictor("u2netp", seed=0, device=device, dtype=dtype)
+    with torch.no_grad():
+        return [o.float() for o in pred.model(torch.from_numpy(images).to(pred.device).permute(0, 3, 1, 2))]
+
+
+def check_readout_bf16_grad_case(case, device, seed) -> dict:
+    """``MemoryReadout``'s bf16 backward against float64 autograd of the dense
+    readout on the same bf16 values (limit R · 2^-8 per gradient) and at least
+    BF16_RAN_REL from the fp32 Function's gradients of those values."""
+    q, k, v, ok, d_out = (t.bfloat16() if t.is_floating_point() else t
+                          for t in readout_grad_inputs(case, device, seed))
+    out, *got = readout_grads(q, k, v, ok, d_out)
+    if out.dtype != BF16 or any(g.dtype != BF16 for g in got):
+        raise AssertionError("memory_readout bf16: the output or a gradient is not bf16")
+    _, *ref = readout_grads_fp64(q, k, v, ok, d_out)
+    _, *g32 = readout_grads(q.float(), k.float(), v.float(), ok, d_out.float())
+    return grad_errors("memory_readout", case, got, ref, g32, ("dq", "dk", "dv"))
+
+
+def grad_errors(name, case, got, ref, g32, names) -> dict:
+    lim = BF16_GRAD_ROUNDINGS[name] * 2.0 ** -8
+    worst, ran, parts = 0.0, float("inf"), []
+    for n, g, r, f in zip(names, got, ref, g32):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} bf16 backward: {n} is not finite")
+        e = float((g.double() - r).norm() / r.norm())
+        d = float((g.double() - f.double()).norm() / f.double().norm())
+        worst, ran = max(worst, e / lim), min(ran, d)
+        parts.append(f"{n} {e:.3g} (from fp32 {d:.3g})")
+        if e > lim or d < BF16_RAN_REL:
+            raise AssertionError(f"{name} bf16 backward {case}: {n} {e:.3g} from float64 (limit {lim:.3g}), "
+                                 f"{d:.3g} from fp32 (at least {BF16_RAN_REL:.3g})")
+    log(f"{name} bf16 backward {case}: relative norm of the difference to float64 per gradient (and to the fp32 "
+        f"Function's): {', '.join(parts)}; limit {lim:.3g}, at least {BF16_RAN_REL:.3g} from fp32")
+    return {"share": worst, "ran": ran}
+
+
+def check_tail_bf16_grad_case(net, case, device, seed) -> dict:
+    """``DecodeTail``'s bf16 backward through a bf16 copy of the needle decoder
+    (fp32 masters) against float64 autograd of the un-packed tail on the same bf16
+    weights and inputs (limit R · 2^-8 per gradient), and at least BF16_RAN_REL
+    from the fp32 Function's gradients of those values."""
+    import copy
+
+    from yolo_puncture_tpu_torch.nn.common import MasterWeights, to_compute_dtype
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+
+    N, No, H16, W16 = case
+    x16 = [t.bfloat16() for t in tail_inputs(N, No, H16, W16, torch.float32, seed, device)]
+    d_out = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((N, No, 4 * H16, 4 * W16))
+                             .astype(np.float32)).to(device)
+    dec16 = to_compute_dtype(copy.deepcopy(net.decoder).requires_grad_(True), BF16)
+    weights = MasterWeights(dec16)
+    names = [n for n in dt.RAW_FIELDS if "running" not in n]
+
+    def run(dec, params, xs, masters=None):
+        xs = [t.detach().clone().requires_grad_() for t in xs]
+        out = dt.decode_tail(params, *xs)
+        if out.grad_fn is None:
+            raise AssertionError("decode_tail returned a tensor without grad_fn for inputs that require one")
+        out.backward(d_out.to(out.dtype))
+        if masters is not None:
+            masters.collect_grads()
+            pg = masters.named
+        else:
+            pg = dict(dec.named_parameters())
+        return [t.grad for t in xs] + [pg[n].grad for n in names]
+
+    got = run(dec16, dec16.tail_params(BF16), x16, weights)
+    dec64 = copy.deepcopy(dec16).double()                                # the bf16 weights' values
+    xs64 = [t.detach().double().requires_grad_() for t in x16]
+    dt.decode_tail_unpacked(dec64.tail_params(torch.float32).raw, *xs64).backward(d_out.double())
+    p64 = dict(dec64.named_parameters())
+    ref = [t.grad for t in xs64] + [p64[n].grad for n in names]
+    dec32 = copy.deepcopy(dec16).float()
+    g32 = run(dec32, dec32.tail_params(torch.float32), [t.float() for t in x16])
+    return grad_errors("decode_tail", case, got, ref, g32, ["hidden", "f8p", "f4p"] + names)
+
+
+def backward_case(name: str, dtype, net, device):
+    """(the kernel's forward through its Function, the plain dense fp32 version's
+    forward, the cotangent) at the tracker trainer's shapes, in ``dtype``: the
+    readout on READOUT_GRAD_CASES[0], the tail on TAIL_GRAD_CASES[1] through a
+    copy of the needle decoder cast to ``dtype`` (``to_compute_dtype``)."""
+    import copy
+
+    from yolo_puncture_tpu_torch.nn.common import to_compute_dtype
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.track.network import memory_readout_dense
+
+    if name == "memory_readout":
+        q, k, v, ok, d_out = readout_grad_inputs(READOUT_GRAD_CASES[0], device, 600)
+        q, k, v = (t.to(dtype).requires_grad_() for t in (q, k, v))
+        return (lambda: mr.memory_readout(q, k, v, ok)), (lambda: memory_readout_dense(q, k, v, ok)), d_out
+    hidden, f8p, f4p = (t.to(dtype) for t in tail_inputs(*TAIL_GRAD_CASES[1], torch.float32, 601, device))
+    hidden.requires_grad_()
+    params = to_compute_dtype(copy.deepcopy(net.decoder).requires_grad_(True), dtype).tail_params(dtype)
+    d_out = torch.ones((3, 4, 64, 64), device=device)
+    return ((lambda: dt.decode_tail(params, hidden, f8p, f4p)),
+            (lambda: dt.decode_tail_unpacked(params.raw, hidden, f8p, f4p)), d_out)
+
+
+def time_tracker_backward(smi: str, net, device) -> dict:
+    """6h: the forward and backward of the readout and the tail through their
+    Functions at the tracker trainer's shapes (``backward_case``), fp32 and bf16
+    in turns (fp32, bf16, bf16, fp32: the host's pace drifts within a call, and
+    these backwards are launch-bound library calls), and fp32's plain dense
+    version's backward once.  Returns the ``kernels`` line's timing fields by
+    kernel name (``memory_readout``, ``memory_readout_bf16``, ...)."""
+    fields = {}
+    for name in ("memory_readout", "decode_tail"):
+        turns = {torch.float32: [], BF16: []}
+        for dtype in (torch.float32, BF16, BF16, torch.float32):
+            fwd, lib_fwd, d_out = backward_case(name, dtype, net, device)
+            out = fwd()
+            times = (cuda_time_ms(fwd, iters=20, warmup=3), *backward_ms(out, d_out.to(out.dtype)))
+            if dtype == torch.float32 and not turns[dtype]:
+                times += (backward_ms(lib_fwd(), d_out)[0],)
+            turns[dtype].append(times)
+            del out, fwd, lib_fwd
+        (f1, f2), (b1, b2) = turns[torch.float32], turns[BF16]
+        log(f"{name} at the trainer's shape, through the Function, ms (CUDA events, mean of 20; in turns fp32, bf16, "
+            f"bf16, fp32; the host's enqueue time of the same backward launches in brackets): fp32 forward "
+            f"{f1[0]:.4f} / {f2[0]:.4f}, backward {f1[1]:.4f} ({f1[2]:.4f}) / {f2[1]:.4f} ({f2[2]:.4f}); "
+            f"bf16 forward {b1[0]:.4f} / {b2[0]:.4f}, backward {b1[1]:.4f} ({b1[2]:.4f}) / {b2[1]:.4f} "
+            f"({b2[2]:.4f}); autograd of the plain dense fp32 version's backward {f1[3]:.4f} [{smi}]")
+        for key, (a, b) in ((name, (f1, f2)), (f"{name}_bf16", (b1, b2))):
+            fields[key] = {"train_forward_ms": (a[0] + b[0]) / 2, "backward_ms": (a[1] + b[1]) / 2,
+                           "backward_enqueue_ms": (a[2] + b[2]) / 2}
+        fields[f"{name}_bf16"]["fp32_backward_ms"] = fields[name]["backward_ms"]     # the same turns
+    return fields
+
+
+def bf16_train_phase(smi: str, device=None, track_argv=(), steps=TRACK_TRAIN_STEPS, window_steps=TRACK_WINDOW_STEPS,
+                     det_model: str = "yolo10s-seg", det_imgsz: int = 640, det_batch: int = DET_TRAIN_B,
+                     det_steps: int = DET_TRAIN_STEPS, cls_size: int = 380, cls_batch: int = 16,
+                     unet_size: int = 320, unet_batch: int = 4, ft_steps: int = FT_STEPS, fp32=None):
+    """3za: bf16 training as the JAX package does it (fp32 masters, bf16 compute)
+    in every trainer.  (a) The kernels' bf16 backward at the tracker trainer's
+    shapes against float64 (6h times it); (b) ``PropagationTrainer`` on a
+    bf16 core with ``train_tracker``'s defaults: one step against the fp32 step
+    on the same batch and weights, then ``steps`` timed steps and
+    ``window_steps`` with ``window_mix`` 0.5; (c) the detector's ``Trainer`` on
+    a bf16 YOLOv10-S seg: its train-mode network against fp32 at B 2, then
+    ``det_steps`` timed steps at ``det_batch``; (d) ``ClassifierFinetuner`` on
+    bf16 B3 and VAN-B0, ``UNetFinetuner`` on bf16 U2NETP, and U2NETP's bf16
+    forward against fp32.  ``fp32``: 3q and 3r's ms a step and peak memory,
+    printed beside the bf16 ones.  Returns (the bf16 kernels' launches, their
+    backward's share of its limits for the ``kernels`` line)."""
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.apps import train_tracker as tt_app
+    from yolo_puncture_tpu_torch.ops.kernels import decode_tail as dt
+    from yolo_puncture_tpu_torch.ops.kernels import memory_readout as mr
+    from yolo_puncture_tpu_torch.tasks import ClassifierNet, UNetPredictor
+    from yolo_puncture_tpu_torch.track import train as ttrain
+    from yolo_puncture_tpu_torch.train import ClassifierFinetuner, Trainer, UNetFinetuner
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    fp32 = fp32 or {}
+    launches = {"memory_readout_bf16": 0, "decode_tail_bf16": 0}
+
+    # (a) the kernels' bf16 backward (timed in 6h, beside fp32's)
+    net = needle_network(dev)
+    backward = {"memory_readout_bf16": {"backward_grad_share": max(
+                    check_readout_bf16_grad_case(c, dev, 540 + i)["share"] for i, c in enumerate(READOUT_GRAD_CASES[:2]))},
+                "decode_tail_bf16": {"backward_grad_share": max(
+                    check_tail_bf16_grad_case(net, c, dev, 560 + i)["share"] for i, c in enumerate(TAIL_GRAD_CASES[:2]))}}
+    del net
+
+    # (b) the tracker's trainer
+    targs = tt_app.parse_args(TRACKER_TRAIN_ARGS + list(track_argv))
+    tr32, tr16 = bf16_tracker_pair(targs, device)
+    tracker_kept = kept_fp32_bytes(tr16.core.net)
+    batch = tr16._sample_batch()      # as 3q draws its batch: the timed steps then draw 3q's clips and modes
+
+    def counts():
+        got = (mr.memory_readout.launches, dt.decode_tail.launches)
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        return got
+
+    dist = bf16_tracker_step_distance(tr32, tr16, batch, counts)
+    got = dist["launches"]
+    per = targs.batch * targs.clip_len
+    if got != (per, per) or tr16.core.memory.values.dtype != BF16 \
+            or not all(key[0] == BF16 for key in tr16.core.net.decoder._tail_cache):
+        raise AssertionError(f"the bf16 tracker step launched {got}, not one readout and one tail a frame each "
+                             f"({per}), or its memory or tail was not bf16")
+    launches["memory_readout_bf16"] += got[0]
+    launches["decode_tail_bf16"] += got[1]
+    log(f"main path (bf16 tracker training step, {targs.batch} clips of {targs.clip_len} frames at "
+        f"{targs.height}x{targs.width}, {targs.max_objects} objects): loss {dist['loss16']:.6f} bf16, "
+        f"{dist['loss32']:.6f} fp32; the bf16 step alone launched memory_readout {got[0]} and decode_tail {got[1]} "
+        f"times")
+    hold_distance("tracker training loss", dist["loss"], "tracker_loss", floor=False)
+    hold_distance("tracker training gradients", dist["grads"], "tracker_grads")
+    del tr32
+    from yolo_puncture_tpu_torch.ops.kernels.decode_tail import pack_decode_tail_params
+
+    dec = tr16.core.net.decoder
+    packed = dec.tail_params(BF16)
+    tr16.update()
+    assert_fp32_masters("bf16 tracker trainer", tr16.weights, tr16.opt)
+    fresh = pack_decode_tail_params(dec.dec8, dec.dec4, dec.out, BF16)
+    if dec.tail_params(BF16) is packed or not all(torch.equal(getattr(dec.tail_params(BF16), f), getattr(fresh, f))
+                                                  for f in ("t8", "t4", "a8", "a4", "w_out", "b_out")):
+        raise AssertionError("the tail's packed weights did not follow the masters' copy into the bf16 network")
+    for name, mix, n in (("per-frame", 0.0, steps), ("window_mix 0.5", 0.5, window_steps)):
+        tr16.window_mix = mix
+        if mix and tr16.window_loss_fn is None:
+            tr16.window_loss_fn = ttrain.build_windowed_propagation_loss(tr16.core, 3)
+        mr.memory_readout.launches = dt.decode_tail.launches = 0
+        sync()
+        peak_reset()
+        t = time.perf_counter()
+        last = tr16.fit(steps=n, log_every=0)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3 / n
+        got = (mr.memory_readout.launches, dt.decode_tail.launches)
+        ref = fp32.get(f"tracker {name}", {})
+        log(f"main path (bf16 tracker training, {name}): {n} steps, {ms:.1f} ms a step (fp32 in 3q "
+            f"{ref.get('ms', float('nan')):.1f}), peak memory {peak_gib():.2f} GiB (fp32 "
+            f"{ref.get('peak_gib', float('nan')):.2f}); launches {got}; last loss {last:.6f} [{smi}]")
+        if not (np.isfinite(last) and min(got) > 0):
+            raise AssertionError(f"bf16 tracker training ({name}): loss {last}, launches {got}")
+        launches["memory_readout_bf16"] += got[0]
+        launches["decode_tail_bf16"] += got[1]
+    assert_fp32_masters("bf16 tracker trainer", tr16.weights, tr16.opt)
+    del tr16
+
+    # (c) the detector's Trainer
+    det32 = YOLO(det_model, nc=1, seed=0, device=device).model
+    det16 = YOLO(det_model, nc=1, seed=0, dtype=BF16, device=device).model
+    sync()
+    t = time.perf_counter()
+    host = [p.detach().to("cpu", copy=True) for p in det32.parameters()]
+    copy_ms = (time.perf_counter() - t) * 1e3
+    del host
+    log(f"fp32 values a bf16 model keeps on the host (nn/common.py cast_parameters; serving models too): "
+        f"{det_model} {kept_fp32_bytes(det16)} B, the bf16 tracker network {tracker_kept} B; copying {det_model}'s "
+        f"fp32 weights from the card to the host, as a cast on the card does: {copy_ms:.2f} ms [{smi}]")
+    dbatch = polygon_batch(det_batch, det_imgsz, seed=8)
+    images = torch.from_numpy(dbatch["images"][:2]).to(dev)
+    maps32, g32 = detector_head_vjp(det32, images)
+    maps16, g16 = detector_head_vjp(det16, images)
+    hold_distance(f"{det_model} {det_imgsz}^2 B 2 train-mode head maps", rel_l1(maps16, maps32), "detector_maps")
+    hold_detector_grads(f"{det_model} {det_imgsz}^2 B 2 gradients of the maps' random projection", g16, g32)
+    del det32, maps32, g32, maps16, g16
+    tr = Trainer(det16, nc=1, imgsz=det_imgsz)
+    state = tr.init_state()
+    state, m = tr.train_step(state, dbatch)                               # warm-up
+    sync()
+    peak_reset()
+    t = time.perf_counter()
+    totals = []
+    for _ in range(det_steps):
+        state, m = tr.train_step(state, dbatch)
+        totals.append(float(m["total"]))
+    sync()
+    ms = (time.perf_counter() - t) * 1e3 / det_steps
+    ref = fp32.get("detector", {})
+    log(f"main path (bf16 detector training, {det_model} {det_imgsz}^2, B {det_batch}): {det_steps} steps "
+        f"{ms:.1f} ms a step (fp32 in 3r {ref.get('ms', float('nan')):.1f}), {det_batch * 1e3 / ms:.1f} images/s, "
+        f"peak memory {peak_gib():.2f} GiB (fp32 {ref.get('peak_gib', float('nan')):.2f}); totals "
+        f"{[round(v, 3) for v in totals]} [{smi}]")
+    if not all(np.isfinite(totals)):
+        raise AssertionError("bf16 detector training gave a loss that is not finite")
+    assert_fp32_masters("bf16 detector Trainer", tr.weights, tr.opt, state.ema_params)
+    if any(v.dtype != torch.float32 for v in state.opt_state.values()):
+        raise AssertionError("bf16 detector Trainer: an SGD buffer is not fp32")
+    del tr, state, det16
+
+    # (d) the fine-tuners; U2NETP's bf16 forward
+    crops, labels = brightness_crops(4 * cls_batch, cls_size, seed=30)
+    images, masks = bar_masks(4 * unet_batch, unet_size, seed=31)
+    cases = [(f"ClassifierFinetuner B3 {cls_size}^2 B {cls_batch}", "efficientnet_b3", cls_batch),
+             (f"ClassifierFinetuner VAN-B0 {cls_size}^2 B {cls_batch}", "van_b0", cls_batch),
+             (f"UNetFinetuner U2NETP {unet_size}^2 B {unet_batch}", "u2netp", unet_batch)]
+    for what, name, bs in cases:
+        if name == "u2netp":
+            ft = UNetFinetuner(UNetPredictor("u2netp", seed=0, device=device, dtype=BF16), lr=3e-4, seed=0)
+            data = [(torch.from_numpy(images[i:i + bs]).to(dev), torch.from_numpy(masks[i:i + bs]).to(dev))
+                    for i in range(0, len(images), bs)]
+        else:
+            net16 = ClassifierNet(name, input_size=cls_size, seed=0, device=device, dtype=BF16)
+            net16.model.drop_rate = 0.0
+            ft = ClassifierFinetuner(net16, lr=5e-4, seed=0)
+            data = [(torch.from_numpy(crops[i:i + bs]).to(dev), torch.from_numpy(labels[i:i + bs]).to(dev))
+                    for i in range(0, len(crops), bs)]
+        ft.step(*data[0])                                                # warm-up
+        sync()
+        peak_reset()
+        losses = []
+        t = time.perf_counter()
+        for i in range(ft_steps):
+            out = ft.step(*data[i % len(data)])
+            losses.append(out[0] if isinstance(out, tuple) else out)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3 / ft_steps
+        losses = [float(v) for v in losses]
+        first, last = np.mean(losses[:len(data)]), np.mean(losses[-len(data):])
+        log(f"main path (bf16 {what}): {ft_steps} steps {ms:.2f} ms a step, {bs * 1e3 / ms:.1f} images/s, peak "
+            f"memory {peak_gib():.2f} GiB; losses {[round(v, 4) for v in losses]} [{smi}]")
+        if not (np.isfinite(losses).all() and last < first):
+            raise AssertionError(f"bf16 {what}: the loss did not fall over {ft_steps} steps ({first} → {last})")
+        assert_fp32_masters(f"bf16 {what}", ft.weights, ft.opt)
+        del ft, data
+    hold_distance(f"U2NETP {unet_size}^2 forward, seven maps", rel_l1(u2netp_maps(BF16, unet_size, device),
+                                                                     u2netp_maps(torch.float32, unet_size, device)),
+                  "u2netp_maps")
+    log(f"phase 3za (bf16 training): {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches, backward
+
+
 def sync() -> None:
     """Wait for the card (a no-op without one: the phases rehearse on the CPU)."""
     if torch.cuda.is_available():
@@ -3778,9 +4291,10 @@ def main() -> int:
     # -- 3q-3s. training: the tracker's trainer, the detector's Trainer, their entry points ---------------
     import tempfile
 
-    for k, n in train_tracker_phase(smi).items():
+    fp32_train = {}
+    for k, n in train_tracker_phase(smi, timings=fp32_train).items():
         launches[k] += n
-    train_detector_phase(smi, imgsz)
+    fp32_train["detector"] = train_detector_phase(smi, imgsz)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         for k, n in train_apps_phase(work, imgsz).items():
@@ -3809,6 +4323,11 @@ def main() -> int:
 
     # -- 3z. the rest of the model zoo: VAN (classifier, pipeline, evaluate_speed, fine-tuner) and SAM -----------
     for k, n in zoo_phase(smi, clip, needle_decoded, needle_mp4, imgsz=imgsz).items():
+        launches[k] += n
+
+    # -- 3za. bf16 training: fp32 masters, bf16 compute, in every trainer --------------------------------------
+    bf16_launches, bf16_backward = bf16_train_phase(smi, fp32=fp32_train)
+    for k, n in bf16_launches.items():
         launches[k] += n
 
     # -- 4. the same calls on the CPU ------------------------------------------------------
@@ -4114,32 +4633,10 @@ def main() -> int:
     core.affinity_bf16 = True
     del model16, btracker, bframes, core
 
-    # -- 6h. the backward of the tracker's kernels at the trainer's shapes, beside their forward -----------
-    for name, make in (("memory_readout", lambda: readout_grad_inputs(READOUT_GRAD_CASES[0], device, 600)),
-                       ("decode_tail", lambda: (*tail_inputs(*TAIL_GRAD_CASES[1], torch.float32, 601, device),))):
-        if name == "memory_readout":
-            q, k, v, ok, d_out = make()
-            q, k, v = (t.requires_grad_() for t in (q, k, v))
-            fwd = lambda: mr.memory_readout(q, k, v, ok)                    # noqa: E731
-            lib_fwd = lambda: memory_readout_dense(q, k, v, ok)             # noqa: E731
-        else:
-            hidden, f8p, f4p = make()
-            hidden.requires_grad_()
-            net.decoder.requires_grad_(True)
-            params = net.decoder.tail_params(torch.float32)
-            d_out = torch.ones((3, 4, 64, 64), device=device)
-            fwd = lambda: dt.decode_tail(params, hidden, f8p, f4p)          # noqa: E731
-            lib_fwd = lambda: dt.decode_tail_unpacked(params.raw, hidden, f8p, f4p)   # noqa: E731
-        out, lib_out = fwd(), lib_fwd()
-        fwd_ms = cuda_time_ms(fwd, iters=20, warmup=3)
-        bwd_ms = cuda_time_ms(lambda: out.backward(d_out, retain_graph=True), iters=20, warmup=3)
-        lib_ms = cuda_time_ms(lambda: lib_out.backward(d_out, retain_graph=True), iters=20, warmup=3)
-        log(f"{name} at the trainer's shape: forward (kernel, through the Function) {fwd_ms:.4f} ms, backward "
-            f"{bwd_ms:.4f} ms; autograd of the plain dense version's backward {lib_ms:.4f} ms [{smi}]")
-        entry = next(e for e in kernels if e["name"] == name)
-        entry.update(train_forward_ms=fwd_ms, backward_ms=bwd_ms, backward_grad_share=grad_share[name])
-        del out, lib_out
-    net.decoder.requires_grad_(False)
+    # -- 6h. the backward of the tracker's kernels at the trainer's shapes, beside their forward, fp32 and bf16 ---
+    for name, entry in time_tracker_backward(smi, net, device).items():
+        entry.update(bf16_backward.get(name, {"backward_grad_share": grad_share.get(name)}))
+        next(e for e in kernels if e["name"] == name).update(entry)
 
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from the start, the build included [{smi}]")
     print(json.dumps({"kernels": kernels}))

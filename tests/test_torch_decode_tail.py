@@ -301,12 +301,17 @@ def test_gradients_match_jax_grad_of_the_unpacked_tail(n):
 
 
 def test_gradient_path_keeps_the_forward_and_refuses_bf16(setup):
+    """The gradient path gives the forward of the path without one, in fp32 and
+    in bf16 (bf16 training); a type the Function does not take (fp16) raises."""
     _, net, hidden, f8p, f4p = setup
-    params = net.decoder.tail_params(torch.float32)
     args = (torch.from_numpy(hidden), torch.from_numpy(f8p), torch.from_numpy(f4p))
-    with torch.no_grad():
-        plain = decode_tail(params, *args)
-    assert torch.equal(decode_tail(params, args[0].clone().requires_grad_(), *args[1:]).detach(), plain)
-    p16 = net.decoder.tail_params(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        decode_tail(p16, args[0].bfloat16().requires_grad_(), args[1].bfloat16(), args[2])
+    for dtype in (torch.float32, torch.bfloat16):
+        params = net.decoder.tail_params(dtype)
+        typed = (args[0].to(dtype), args[1].to(dtype), args[2])
+        with torch.no_grad():
+            plain = decode_tail(params, *typed)
+        out = decode_tail(params, typed[0].clone().requires_grad_(), *typed[1:])
+        assert out.grad_fn is not None and torch.equal(out.detach(), plain)
+    p16 = net.decoder.tail_params(torch.float16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        decode_tail(p16, args[0].half().requires_grad_(), args[1].half(), args[2])

@@ -47,7 +47,9 @@ from chip_smoke import (
     check_readout_affinity_case,
     check_readout_case,
     check_readout_fp64_case,
+    check_readout_bf16_grad_case,
     check_readout_grad_case,
+    check_tail_bf16_grad_case,
     check_tail_grad_case,
     export_phase,
     finetune_phase,
@@ -326,6 +328,22 @@ def test_memory_readout_backward_matches_the_cpu_and_float64(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", READOUT_GRAD_CASES[:2] + TAIL_GRAD_CASES[:2], ids=lambda c: "-".join(map(str, c)))
+def test_bf16_backward_of_both_kernels_matches_float64(cuda, case):
+    """bf16 training: ``MemoryReadout``'s and ``DecodeTail``'s bf16 backward at
+    the tracker trainer's shapes within ``chip_smoke.BF16_GRAD_ROUNDINGS`` · 2^-8
+    of float64 gradients of the same bf16 values, and away from the fp32
+    Function's; the forward is the kernel's bf16 route."""
+    counter = memory_readout if len(case) == 4 and isinstance(case[3], str) else decode_tail
+    before = counter.launches
+    if counter is memory_readout:
+        check_readout_bf16_grad_case(case, cuda, seed=9)
+    else:
+        check_tail_bf16_grad_case(needle_network(cuda), case, cuda, seed=10)
+    assert counter.launches > before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", TAIL_GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_decode_tail_backward_matches_the_cpu_and_float64(cuda, case):
     """The tail's gradients (activations and the eight raw weights) with the
@@ -339,15 +357,16 @@ def test_decode_tail_backward_matches_the_cpu_and_float64(cuda, case):
 @pytest.mark.gpu
 def test_kernels_keep_the_autograd_graph_on_cuda(cuda):
     """A CUDA input that requires a gradient never comes back without a
-    ``grad_fn``; bf16 training raises."""
+    ``grad_fn``, in fp32 and in bf16 (bf16 training); fp16 raises."""
     q, k, v = (torch.randn(*s, device=cuda) for s in ((64, 64), (300, 64), (2, 300, 128)))
     ok = torch.ones(300, dtype=torch.bool, device=cuda)
     for i in range(3):
         args = [q, k, v]
         args[i] = args[i].clone().requires_grad_()
         assert memory_readout(*args, ok).grad_fn is not None
-    with pytest.raises(NotImplementedError):
-        memory_readout(q.bfloat16().requires_grad_(), k.bfloat16(), v.bfloat16(), ok)
+    assert memory_readout(q.bfloat16().requires_grad_(), k.bfloat16(), v.bfloat16(), ok).grad_fn is not None
+    with pytest.raises(TypeError):
+        memory_readout(q.half().requires_grad_(), k.half(), v.half(), ok)
     net = needle_network(cuda)
     h = torch.randn(1, 2, 4, 4, 128, device=cuda)
     f8, f4 = torch.randn(1, 8, 8, 64, device=cuda), torch.randn(1, 16, 16, 64, device=cuda)
@@ -355,6 +374,8 @@ def test_kernels_keep_the_autograd_graph_on_cuda(cuda):
     assert decode_tail(params, h.requires_grad_(), f8, f4).grad_fn is not None
     net.decoder.out.weight.requires_grad_(True)
     assert decode_tail(net.decoder.tail_params(torch.float32), h.detach(), f8, f4).grad_fn is not None
+    h16 = h.detach().bfloat16().requires_grad_()
+    assert decode_tail(net.decoder.tail_params(torch.bfloat16), h16, f8.bfloat16(), f4.bfloat16()).grad_fn is not None
 
 
 @pytest.mark.gpu

@@ -322,5 +322,13 @@ def test_gradient_path_keeps_the_forward_and_refuses_bf16():
     with torch.no_grad():
         plain = memory_readout(tq, tk, tv, tok)
     assert torch.equal(memory_readout(tq.requires_grad_(), tk, tv, tok).detach(), plain)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        memory_readout(tq.detach().bfloat16().requires_grad_(), tk.bfloat16(), tv.bfloat16(), tok)
+    # bf16 (bf16 training) goes through the Function too; fp16, or mixed types, raise
+    b16 = [t.detach().bfloat16() for t in (tq, tk, tv)]
+    with torch.no_grad():
+        plain16 = memory_readout(*b16, tok)
+    out16 = memory_readout(b16[0].clone().requires_grad_(), *b16[1:], tok)
+    assert out16.grad_fn is not None and torch.equal(out16.detach(), plain16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        memory_readout(tq.detach().half().requires_grad_(), tk.half(), tv.half(), tok)
+    with pytest.raises(TypeError, match="one type"):
+        memory_readout(tq.detach().requires_grad_(), tk.bfloat16(), tv.bfloat16(), tok)

@@ -95,8 +95,12 @@ def test_create_model_builds_u2net_and_refuses_another_dtype():
     small, full = create_model("u2netp"), create_model("u2net")
     assert isinstance(small, U2Net) and full.stage1.rebnconvin.conv_s1.out_channels == 64
     assert small.stage1.rebnconv1.conv_s1.out_channels == 16 and full.stage1.rebnconv1.conv_s1.out_channels == 32
-    with pytest.raises(ValueError, match="float32"):
-        create_model("u2netp", dtype=torch.bfloat16)
+    # bf16 as the JAX package's U2Net(dtype=bfloat16): bf16 convolutions, fp32 BatchNorm
+    b16 = create_model("u2netp", dtype=torch.bfloat16)
+    assert b16.stage1.rebnconvin.conv_s1.weight.dtype == torch.bfloat16
+    assert b16.stage1.rebnconvin.bn_s1.running_var.dtype == torch.float32
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        create_model("u2netp", dtype=torch.float16)
 
 
 def test_letterbox_module_stays_reachable():

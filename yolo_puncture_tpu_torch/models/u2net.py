@@ -17,6 +17,11 @@ Down-sampling is ``max_pool2d(2, 2, ceil_mode=True)``; up-sampling is
 ratios the odd sizes give (380 → 190 → 95 → 48 → 24 → 12 and back).  In
 ``train()`` BatchNorm is flax's (``nn/common.py BatchNorm2d``) with the JAX
 package's momentum 0.9 and eps 1e-5.
+
+``dtype=torch.bfloat16`` is the JAX package's ``U2Net(dtype=bfloat16)``
+(``nn/common.py to_compute_dtype``): the input rounded to bf16, bf16
+convolutions, max pools, resizes and sigmoids, BatchNorm on fp32 statistics and
+affine parameters.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_puncture_tpu_torch.nn.common import BatchNorm2d
+from yolo_puncture_tpu_torch.nn.common import BatchNorm2d, to_compute_dtype
 from yolo_puncture_tpu_torch.ops.resize import resize_bilinear
 from yolo_puncture_tpu_torch.registry import register_model
 
@@ -125,8 +130,9 @@ class U2Net(nn.Module):
     """Full U²-Net or, with ``small``, U2NETP.  ``forward`` takes NCHW images
     and returns the seven sigmoid maps (B, out_ch, H, W), the fused one first."""
 
-    def __init__(self, out_ch: int = 1, small: bool = False):
+    def __init__(self, out_ch: int = 1, small: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         spec = _SMALL if small else _FULL
         for name, (kind, height, cin, mid, out) in zip(_STAGES, spec):
             self.add_module(name, RSU(height, cin, mid, out) if kind == "rsu" else RSU4F(cin, mid, out))
@@ -134,21 +140,25 @@ class U2Net(nn.Module):
         for i, c in enumerate(side_ch, 1):
             self.add_module(f"side{i}", nn.Conv2d(c, out_ch, 3, padding=1))
         self.outconv = nn.Conv2d(6 * out_ch, out_ch, 1)
+        to_compute_dtype(self, dtype)
         self.eval()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "U2Net":
         """Seeded random init: LeCun-normal kernels, zero biases, identity
-        BatchNorm statistics."""
+        BatchNorm statistics; drawn in fp32 whatever ``dtype`` is."""
+        to_compute_dtype(self, torch.float32)
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(m.weight[0].numel()))
                 m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
+        to_compute_dtype(self, self.dtype)
         return self
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = x.to(self.stage1.rebnconvin.conv_s1.weight.dtype)    # the compute type (float64 after ``double()``)
         hx1 = self.stage1(x)
         hx2 = self.stage2(_maxpool2_ceil(hx1))
         hx3 = self.stage3(_maxpool2_ceil(hx2))
@@ -175,9 +185,9 @@ def norm_pred(d: torch.Tensor) -> torch.Tensor:
 
 def _ctor(small: bool):
     def ctor(dtype: torch.dtype = torch.float32, **kw) -> U2Net:
-        if dtype != torch.float32:
-            raise ValueError(f"the port's U2Net computes in float32 only, not {dtype}")
-        return U2Net(small=small)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the port's U2Net computes in float32 or bfloat16, not {dtype}")
+        return U2Net(small=small, dtype=dtype)
 
     return ctor
 

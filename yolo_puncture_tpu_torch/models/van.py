@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolo_puncture_tpu_torch.nn.common import BatchNorm2d, torch_batch_statistics
+from yolo_puncture_tpu_torch.nn.common import BatchNorm2d, cast_parameters, torch_batch_statistics
 from yolo_puncture_tpu_torch.registry import register_model
 
 # variant: (widths, depths)
@@ -165,8 +165,7 @@ class VAN(nn.Module):
         layer scales stay fp32, as flax keeps its parameters."""
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                for p in m.parameters(recurse=False):
-                    p.data = p.data.to(dtype)
+                cast_parameters(m, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "VAN":

@@ -14,6 +14,14 @@ parameters and rounds them to bf16 at each use, which gives the same values),
 and BatchNorm keeps fp32 statistics and affine parameters, normalises a bf16
 input in fp32 and rounds its output to bf16 (flax ``BatchNorm(dtype=bf16)``).
 
+Training such a model keeps flax's fp32 parameters too: a parameter rounded to
+bf16 remembers the fp32 value it was rounded from (``fp32_value``), and the
+trainers hold ``MasterWeights``: fp32 masters that the optimizer updates, copied
+(rounded) into the bf16 module after each update, and the bf16 gradients of the
+module's parameters widened into the masters' fp32 gradients, which is what the
+vector-Jacobian product of flax's cast gives.  Serving keeps its bf16 weights
+and pays no cast per forward.
+
 ``ConvBN`` runs its convolution through ``nn/quant.py conv_forward``: inside
 ``int8_convs`` it is an int8 product, inside ``collect_act_scales`` its input's
 scale is recorded, elsewhere it is the plain convolution.
@@ -37,13 +45,125 @@ def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every parameter outside BatchNorm to ``dtype``; BatchNorm layers keep
     fp32 statistics and affine parameters, and PyTorch's BatchNorm then computes
     in fp32 on an input of another type and returns that type.  ``model.to(dtype)``
-    would round the statistics too."""
+    would round the statistics too.  The cast is ``cast_parameters``: a rounded
+    parameter keeps its fp32 value, and a cast back to fp32 restores it."""
     for m in module.modules():
-        if isinstance(m, nn.modules.batchnorm._BatchNorm):
-            continue
-        for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype)
+        if not isinstance(m, nn.modules.batchnorm._BatchNorm):
+            cast_parameters(m, dtype)
     return module
+
+
+def _keep_fp32(p: torch.Tensor, value: Optional[torch.Tensor]) -> None:
+    """Record (or, with None, forget) the fp32 value a rounded parameter stands
+    for.  With ``fp32_value`` the only code that reads or writes that record."""
+    if value is None:
+        p.__dict__.pop("_kept_fp32", None)
+    else:
+        p._kept_fp32 = value
+
+
+def fp32_value(p: torch.Tensor, required: bool = False) -> torch.Tensor:
+    """The fp32 value of a parameter: itself if it is fp32; for a parameter that
+    ``cast_parameters`` rounded, the fp32 value it was rounded from (moved to its
+    device).  A parameter with no such value (made or loaded in a narrow type)
+    is widened, which is exact, unless ``required``: then it raises, as it does
+    when the kept value no longer rounds to the parameter (its weights were
+    written after the cast by a path that kept no fp32 value)."""
+    if p.dtype == torch.float32:
+        return p.detach()
+    kept = p.__dict__.get("_kept_fp32")
+    if kept is None:
+        if required:
+            raise ValueError(f"a {p.dtype} parameter of shape {tuple(p.shape)} has no fp32 value: build or load "
+                             f"the model in fp32 and cast it (to_compute_dtype), or load fp32 weights into it")
+        return p.detach().float()
+    kept = kept.detach().to(p.device)
+    if kept.shape != p.shape or not torch.equal(kept.to(p.dtype), p.detach()):
+        raise ValueError(f"a {p.dtype} parameter of shape {tuple(p.shape)} was written after it was rounded, and "
+                         f"its kept fp32 value no longer rounds to it")
+    return kept
+
+
+def fp32_state_dict(module: nn.Module) -> dict:
+    """``module.state_dict()`` with each parameter at its fp32 value
+    (``fp32_value``): the weights a checkpoint or a flax variable tree holds,
+    fp32 as the JAX package keeps them under a bf16 ``dtype``."""
+    params = dict(module.named_parameters())
+    return {k: fp32_value(params[k]) if k in params else v for k, v in module.state_dict().items()}
+
+
+def _keep_fp32_on_load(module, state_dict, prefix, *_):
+    """``load_state_dict`` pre-hook of a module whose parameters were rounded: an
+    fp32 (or wider) tensor loaded into such a parameter is kept as its fp32 value;
+    a narrower one leaves it none."""
+    for name, p in module.named_parameters(recurse=False):
+        v = state_dict.get(prefix + name)
+        if p.dtype != torch.float32 and isinstance(v, torch.Tensor) and v.shape == p.shape:
+            wide = v.dtype in (torch.float32, torch.float64)
+            _keep_fp32(p, v.detach().to("cpu", torch.float32, copy=True) if wide else None)
+
+
+def cast_parameters(module: nn.Module, dtype: torch.dtype) -> None:
+    """Cast ``module``'s own parameters (not its children's) to ``dtype``.  An fp32
+    parameter rounded to a narrower type keeps its fp32 value on the host
+    (``fp32_value``; 4 bytes a weight of host memory, serving models included),
+    and so does one into which ``load_state_dict`` later loads fp32 weights; a
+    rounded parameter cast back to fp32 gets that value again."""
+    params = list(module.parameters(recurse=False))
+    for p in params:
+        if p.dtype == dtype:
+            continue
+        if dtype == torch.float32:
+            p.data = fp32_value(p).clone()
+            _keep_fp32(p, None)
+        else:
+            if p.dtype == torch.float32:
+                _keep_fp32(p, p.detach().to("cpu", copy=True))
+            p.data = p.data.to(dtype)
+    if dtype != torch.float32 and params and not getattr(module, "_keeps_fp32_on_load", False):
+        module.register_load_state_dict_pre_hook(_keep_fp32_on_load)
+        module._keeps_fp32_on_load = True
+
+
+class MasterWeights:
+    """fp32 master weights of a module's trainable parameters: flax's fp32
+    parameters under a bf16 ``dtype``.  An fp32 (or float64) parameter is its own
+    master; a bf16 one gets an fp32 master made from its kept fp32 value
+    (``fp32_value``, which raises where there is none), and from then on the
+    master is that value.  The optimizer updates the masters;
+    ``copy_to_module`` rounds them into the module (one ``torch._foreach_copy_``,
+    which also moves the version counters that caches of packed weights key on);
+    ``collect_grads`` adds the module's gradients, widened to fp32, to the
+    masters' and clears them."""
+
+    def __init__(self, module: nn.Module):
+        self.named = {}
+        self.pairs = []
+        for name, p in module.named_parameters():
+            if not p.requires_grad:
+                continue
+            master = p
+            if p.dtype.itemsize < 4:
+                master = nn.Parameter(fp32_value(p, required=True).clone())
+                _keep_fp32(p, master)
+                self.pairs.append((p, master))
+            self.named[name] = master
+
+    @property
+    def masters(self):
+        return list(self.named.values())
+
+    @torch.no_grad()
+    def copy_to_module(self) -> None:
+        if self.pairs:
+            torch._foreach_copy_([p for p, _ in self.pairs], [m for _, m in self.pairs])
+
+    def collect_grads(self) -> None:
+        for p, m in self.pairs:
+            if p.grad is not None:
+                g = p.grad.float()
+                m.grad = g if m.grad is None else m.grad.add_(g)
+                p.grad = None
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:

@@ -40,9 +40,14 @@ product of the un-packed tail (``decode_tail_unpacked``: nearest up-sample →
 3×3 conv → BN affine → SiLU → skip, twice, then the 1×1 head), recomputed in the
 backward: the function JAX's autodiff differentiates, so the raw weights get
 their gradients with no algebra on the packed form.  Running statistics are
-buffers and get none.  bf16 activations that require a gradient raise (bf16
-training is ROADMAP Queue 1, slice 10); a bf16 tail on activations that need none
-runs its forward alone, as at inference.
+buffers and get none.  In bf16 (bf16 training) the forward is the kernel's bf16
+route and the backward the vector-Jacobian product of the packed tail in bf16
+(``decode_tail_packed_bf16``), the function of JAX's ``decode_tail_subpix(...,
+dtype=bfloat16)``: packed weights rounded to bf16, bf16 convolutions, the BN
+affine and SiLU in fp32 rounded after the SiLU, the head in bf16, the skip plane
+in fp32 past its bf16 product.  The raw weights' gradients come back through the
+casts, so a bf16 weight gets a bf16 gradient and an fp32 one (the BN affine) an
+fp32 gradient.  Other types raise.
 """
 
 from __future__ import annotations
@@ -92,6 +97,24 @@ def depth_to_space2(y: torch.Tensor, Cout: int) -> torch.Tensor:
     n = len(lead)
     y = y.reshape(*lead, H, W, 2, 2, Cout)
     return y.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4).reshape(*lead, 2 * H, 2 * W, Cout)
+
+
+@lru_cache(maxsize=None)
+def subpix_tap_map(device) -> torch.Tensor:
+    """(3, 3, 4, 9) of 0 and 1: ``subpix_up_weights`` as one linear map, packed
+    tap (r, c) of parity group g summing the 3×3 kernel's taps t = 3a + b that
+    carry a 1 (the map applied to each basis kernel), so that packing under
+    autograd is one product and its transpose another."""
+    basis = torch.eye(9).reshape(9, 3, 3, 1, 1)
+    return torch.stack([subpix_up_weights(k)[..., 0, :] for k in basis], dim=-1).to(device)
+
+
+def packed_kernel(w: torch.Tensor) -> torch.Tensor:
+    """OIHW 3×3 kernel (Cout, Cin, 3, 3) → the packed kernel (3, 3, Cin, 4·Cout)
+    of ``subpix_up_weights``, in one product with ``subpix_tap_map``."""
+    Cout, Cin = w.shape[:2]
+    out = torch.einsum("rcgt,oit->rcigo", subpix_tap_map(w.device).to(w.dtype), w.reshape(Cout, Cin, 9))
+    return out.reshape(3, 3, Cin, 4 * Cout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,14 +300,50 @@ def decode_tail_unpacked(raw, hidden, f8p, f4p) -> torch.Tensor:
     return F.conv2d(y4.flatten(0, 1), w_out, b_out).reshape(N, No, 4 * H16, 4 * W16)
 
 
+def decode_tail_packed_bf16(raw, hidden, f8p, f4p) -> torch.Tensor:
+    """The packed tail in bf16 on the raw tensors, channels last → stride-4 logits
+    (N, No, H4, W4) fp32: what the JAX package's ``decode_tail_subpix(...,
+    dtype=bfloat16)`` computes, and what ``DecodeTail`` differentiates in bf16.
+    Each 3×3 convolution takes the packed kernel (``packed_kernel`` in fp32)
+    rounded to bf16 and gives bf16; the BN affine ``scale / √(var + eps)``,
+    ``bias − mean · scale`` and SiLU follow in fp32, rounded to bf16 after the
+    SiLU, as the kernel applies them (and as XLA fuses the JAX function's bf16
+    affine and SiLU on the CPU), so that the BatchNorm parameters' gradients are
+    fp32 sums, as flax's BatchNorm gives them; the head's weights are rounded to
+    bf16 for the per-parity product and the skip product, and its bias is added
+    to the skip plane in fp32."""
+    w8, g8, b8, m8, v8, w4, g4, b4, m4, v4, w_out, b_out = raw
+    bf16 = torch.bfloat16
+    N, No, H16, W16, Cin = hidden.shape
+    Cd = w_out.shape[1]
+
+    def stage(x, w, g, b, m, v):
+        """x (B, H, W, C) bf16 → SiLU(BN(packed conv)) (B, H, W, 4, Cd) bf16."""
+        packed = packed_kernel(w.float()).to(bf16)
+        y = F.conv2d(x.permute(0, 3, 1, 2), packed.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+        a = g.float() / torch.sqrt(v.float() + BN_EPS)
+        return F.silu(y.reshape(*y.shape[:-1], 4, Cd).float() * a + (b.float() - m.float() * a)).to(bf16)
+
+    y = stage(hidden.reshape(N * No, H16, W16, Cin).to(bf16), w8, g8, b8, m8, v8)
+    y = depth_to_space2(y.reshape(N * No, H16, W16, 4 * Cd), Cd)
+    y = y.reshape(N, No, 2 * H16, 2 * W16, Cd) + f8p[:, None].to(bf16)
+    y = stage(y.reshape(N * No, 2 * H16, 2 * W16, Cd), w4, g4, b4, m4, v4)
+    wo = w_out[0, :, 0, 0].to(bf16)
+    o = depth_to_space2(torch.einsum("bhwgc,c->bhwg", y, wo), 1).reshape(N, No, 4 * H16, 4 * W16)
+    skip = torch.einsum("bhwc,c->bhw", f4p.to(bf16), wo).float() + b_out[0].float()
+    return o.float() + skip[:, None]
+
+
 class DecodeTail(torch.autograd.Function):
     """The tail with its gradient: forward the kernel on CUDA tensors (the plain
     version on CPU tensors) on the packed parameters, backward the
-    vector-Jacobian product of ``decode_tail_unpacked`` on the raw tensors."""
+    vector-Jacobian product of ``decode_tail_unpacked`` (fp32) or
+    ``decode_tail_packed_bf16`` (bf16) on the raw tensors."""
 
     @staticmethod
     def forward(ctx, params, hidden, f8p, f4p, *raw):
         ctx.save_for_backward(hidden, f8p, f4p, *raw)
+        ctx.tail = decode_tail_unpacked if params.dtype == torch.float32 else decode_tail_packed_bf16
         return _tail_forward(params, hidden, f8p, f4p)
 
     @staticmethod
@@ -293,7 +352,7 @@ class DecodeTail(torch.autograd.Function):
         wanted = ctx.needs_input_grad[1:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
-            out = decode_tail_unpacked(inputs[3:], *inputs[:3])
+            out = ctx.tail(inputs[3:], *inputs[:3])
             diff = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, diff, d_out) if diff else ())
         return (None, *(next(grads) if w else None for w in wanted))
@@ -347,18 +406,14 @@ def decode_tail(params: DecodeTailParams, hidden, f8p, f4p) -> torch.Tensor:
     bf16 activations of the type ``params`` was prepared for, contiguous,
     Cin == 128, Cd == 64) and anything else raises.  Where grad mode is on and
     the activations or a raw weight require a gradient, the same forward runs
-    inside ``DecodeTail``, which gives the gradients (fp32 only; bf16 activations
-    that require a gradient raise)."""
+    inside ``DecodeTail``, which gives the gradients (fp32 or bf16; another type
+    raises)."""
     _check(params, hidden, f8p, f4p)
     if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_tail runs on cpu or cuda, not {hidden.device}")
-    activations_grad = any(t.requires_grad for t in (hidden, f8p, f4p))
-    if torch.is_grad_enabled() and params.dtype != torch.float32 and activations_grad:
-        raise NotImplementedError(
-            "decode_tail's gradient is fp32 only: bf16 training is not ported yet (ROADMAP Queue 1, slice 10)"
-        )
-    if torch.is_grad_enabled() and params.dtype == torch.float32 and (
-            activations_grad or any(t.requires_grad for t in params.raw)):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (hidden, f8p, f4p, *params.raw)):
+        if params.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"decode_tail's gradient takes fp32 or bf16 activations, got {params.dtype}")
         if len(params.raw) != len(RAW_FIELDS):
             raise ValueError("decode_tail's gradient needs the raw tensors: prepare params with pack_decode_tail_params")
         return DecodeTail.apply(params, hidden, f8p, f4p, *params.raw)

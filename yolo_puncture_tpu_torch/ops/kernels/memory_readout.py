@@ -44,8 +44,14 @@ recomputed from the query and the keys (``readout_weights``):
 Rows with no valid element get zero gradients; ``valid`` gets none.  With
 ``affinity_bf16`` the cotangent of the logits is rounded where JAX rounds it
 (``logit_cotangent_products``).  The products are plain ``torch.matmul``: the
-JAX package has no backward kernel either.  bf16 inputs that require a gradient
-raise (bf16 training is ROADMAP Queue 1, slice 10).
+JAX package has no backward kernel either.
+
+bf16 inputs (bf16 training) take the same kernel forward, and a backward that
+follows JAX's autodiff of the dense readout on bf16 inputs step by step
+(``readout_vjp_bf16``): there the weights are the unnormalised ``bf16(exp(s − m))``,
+the denominator their sum (a column of ones beside the values), and the
+cotangents of the weights, of the values, of the query and of the keys are
+rounded to bf16.  Other types raise.
 """
 
 from __future__ import annotations
@@ -218,6 +224,46 @@ def logit_cotangent_products(dS, query_key, mem_keys, affinity_bf16: bool = Fals
     return (dR @ kb).bfloat16().float(), (dR.T @ qb).bfloat16().float()
 
 
+def readout_vjp_bf16(query_key, mem_keys, mem_values, mem_valid, d_out, affinity_bf16: bool, needs):
+    """(dq, dk, dv) in bf16 for bf16 inputs: the vector-Jacobian product that JAX's
+    autodiff takes of ``track/network.py memory_readout_dense`` (no usage), in its
+    order.  With e = exp(s − m) masked (fp32), p = bf16(e), l = Σ p and
+    O = (p · V) / l:
+
+        dV = bf16(pᵀ · (dO / l));  dl = −Σ dO ∘ (p · V) / l²
+        dp = bf16(Σ_o (dO[o] / l) · V[o]ᵀ + dl);  ds = dp ∘ e
+
+    plus the gradient of the row max m: −Σ ds on the row's largest logits (split
+    between ties), which is zero but for the roundings of dp.  Then dq = bf16(ds ·
+    k · Ck^-0.5) and dk = bf16(dsᵀ · q · Ck^-0.5); with ``affinity_bf16`` the bf16
+    logits' cotangent is summed in bf16 and ``logit_cotangent_products`` rounds as
+    JAX does.  ``needs`` (``ctx.needs_input_grad`` of the query, keys and values)
+    drops dv, or dq and dk, where they are not asked for; a dropped one is None."""
+    valid = mem_valid.bool()[None, :]
+    aff = readout_logits(query_key, mem_keys, affinity_bf16).masked_fill(~valid, float("-inf"))
+    m = aff.max(dim=-1, keepdim=True).values
+    finite = torch.isfinite(m)
+    e = torch.exp(aff - torch.where(finite, m, torch.zeros_like(m))) * valid          # (Q, M) fp32
+    p = e.bfloat16().float()
+    l_raw = p.sum(dim=-1)
+    l = l_raw.clamp_min(1e-9)
+    d_out = d_out.float()
+    dv = torch.einsum("qm,nqc->nmc", p, d_out / l[None, :, None]).bfloat16() if needs[2] else None
+    if not (needs[0] or needs[1]):
+        return None, None, dv
+    G = torch.einsum("nqc,nmc->qm", d_out, mem_values.float())                       # Σ_o dO[o]·V[o]ᵀ
+    dl = -(p * G).sum(dim=-1) / (l * l) * (l_raw > 1e-9)                               # −Σ dO ∘ (p·V) / l²
+    dE = (G / l[:, None] + dl[:, None]).bfloat16().float() * e
+    at_max = (aff == m) & finite
+    ties = at_max.sum(dim=-1, keepdim=True).clamp_min(1)
+    if affinity_bf16:
+        dS = (dE.bfloat16() + (-dE.sum(dim=-1, keepdim=True)).bfloat16() / ties.bfloat16() * at_max).float()
+    else:
+        dS = dE - dE.sum(dim=-1, keepdim=True) / ties * at_max
+    dq, dk = logit_cotangent_products(dS * valid, query_key, mem_keys, affinity_bf16)
+    return dq.bfloat16(), dk.bfloat16(), dv
+
+
 class MemoryReadout(torch.autograd.Function):
     """The readout with its gradient: forward the kernel on CUDA tensors (the plain
     version on CPU tensors), backward the dense readout's vector-Jacobian product
@@ -233,6 +279,8 @@ class MemoryReadout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, valid, out = ctx.saved_tensors
+        if v.dtype == torch.bfloat16:
+            return (*readout_vjp_bf16(q, k, v, valid, d_out, ctx.affinity_bf16, ctx.needs_input_grad[:3]), None, None)
         P = readout_weights(q, k, valid, ctx.affinity_bf16)                    # (Q, M)
         d_out = d_out.float()
         dv = torch.einsum("qm,nqc->nmc", P, d_out) if ctx.needs_input_grad[2] else None
@@ -259,15 +307,16 @@ def memory_readout(query_key, mem_keys, mem_values, mem_valid, affinity_bf16: bo
     bf16, all contiguous and 16-byte aligned, Ck == 64, Cv == 128) and anything
     else raises.  ``split_for`` says how many blocks share the memory.  Where
     grad mode is on and an input requires a gradient, the same forward runs
-    inside ``MemoryReadout``, which gives the gradients (fp32 only)."""
+    inside ``MemoryReadout``, which gives the gradients (all three fp32 or all
+    three bf16; anything else raises)."""
     _check(query_key, mem_keys, mem_values, mem_valid)
     if query_key.device.type not in ("cpu", "cuda"):
         raise ValueError(f"memory_readout runs on cpu or cuda, not {query_key.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (query_key, mem_keys, mem_values)):
-        if any(t.dtype != torch.float32 for t in (query_key, mem_keys, mem_values)):
-            raise NotImplementedError(
-                "memory_readout's gradient is fp32 only: bf16 training is not ported yet (ROADMAP Queue 1, slice 10)"
-            )
+        types = {t.dtype for t in (query_key, mem_keys, mem_values)}
+        if types not in ({torch.float32}, {torch.bfloat16}):
+            raise TypeError(f"memory_readout's gradient takes fp32 or bf16 inputs of one type, got "
+                            f"{sorted(map(str, types))}")
         return MemoryReadout.apply(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
     return _readout_forward(query_key, mem_keys, mem_values, mem_valid, affinity_bf16)
 

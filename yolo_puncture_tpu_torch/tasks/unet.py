@@ -24,14 +24,16 @@ from yolo_puncture_tpu_torch.utils.device import resolve_device
 
 class UNetPredictor:
     """U²-Net (``"u2net"``) or U2NETP (``"u2netp"``) on ``device`` (the card
-    unless it says "cpu"), from ``checkpoint`` or a seeded init from ``seed``."""
+    unless it says "cpu"), from ``checkpoint`` or a seeded init from ``seed``;
+    ``dtype=torch.bfloat16`` computes in bf16 as the JAX package's
+    ``UNetPredictor(dtype=bfloat16)`` does."""
 
     def __init__(self, model_name: str = "u2netp", checkpoint: Optional[str] = None, seed: int = 0,
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         if model_name not in ("u2net", "u2netp"):
             raise ValueError(model_name)
         self.device = resolve_device(device)
-        self.model = U2Net(small=model_name == "u2netp")
+        self.model = U2Net(small=model_name == "u2netp", dtype=dtype)
         if checkpoint:
             sd = {k: torch.from_numpy(np.asarray(v)) for k, v in extract_state_dict(checkpoint).items()
                   if not k.endswith("num_batches_tracked")}
@@ -50,7 +52,7 @@ class UNetPredictor:
         x = torch.from_numpy(np.ascontiguousarray(image_bgr_u8)).to(self.device)
         x = x.flip(-1).permute(2, 0, 1)[None].float() / 255.0     # BGR → RGB, /255
         d0 = self.model(x)[0]
-        pred = norm_pred(d0[0, 0])
+        pred = norm_pred(d0[0, 0].float())
         return ((pred > 0.5).to(torch.uint8) * 255).cpu().numpy()
 
 

@@ -30,6 +30,11 @@ What differs from the JAX package, on purpose:
     the usage accumulated as on the other paths); the readout kernel has no int8
     path and does not run then, as the JAX package's flash kernel does not.  It
     needs ``enable_long_term=False``;
+  * a bf16 core (``dtype=torch.bfloat16``) casts the network as the JAX package's
+    flax modules compute with ``dtype=bfloat16`` (``nn/common.py
+    to_compute_dtype``): bf16 convolutions, BatchNorm on fp32 statistics and
+    affine parameters (JAX's ``batch_stats`` and ``params`` stay fp32), and each
+    rounded weight keeps its fp32 value for ``PropagationTrainer``'s masters;
   * ``affinity_bf16`` rounds the readout's logits to bf16 before the softmax, as
     the JAX package's dense readout rounds its (Q, M) affinity: on the
     long-term path in ``memory_readout_dense``, on the kernel path inside the
@@ -45,6 +50,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from yolo_puncture_tpu_torch.nn.common import to_compute_dtype
 from yolo_puncture_tpu_torch.ops.kernels.memory_readout import memory_readout as memory_readout_kernel
 from yolo_puncture_tpu_torch.ops.masks import _linear_weight_mat, _resample, upsample_bilinear_matmul
 from yolo_puncture_tpu_torch.ops.resize import resize_linear_u8, resize_nearest
@@ -248,7 +254,7 @@ class TrackerCore:
             if isinstance(variables, Mapping) and "params" in variables:
                 variables = export_tracker_state_dict(variables)
             load_tracker_state_dict(self.net, variables)
-        self.net.to(device=self.device, dtype=dtype).eval()
+        to_compute_dtype(self.net, dtype).to(self.device).eval()
         self.memory: MemoryState = init_memory(
             self.h16, self.w16, max_objects, mem_frames, dtype, num_prototypes=lt_capacity,
             value_dim=self.net.value_dim, quantized=self.quantized_memory, device=self.device,

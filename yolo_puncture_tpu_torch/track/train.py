@@ -22,7 +22,13 @@ What differs from the JAX package, on purpose:
     defaults and update ``m̂ / (√v̂ + eps)``) updates its ``nn.Parameter``s only,
     the BatchNorm running statistics are buffers and stay frozen, and the network
     stays in ``eval()`` so that BatchNorm uses them, as flax's
-    ``use_running_average`` forward with ``set_to_zero`` on ``batch_stats`` does.
+    ``use_running_average`` forward with ``set_to_zero`` on ``batch_stats`` does;
+  * a bf16 core trains as the JAX package trains ``TrackerCore(dtype=bfloat16)``:
+    Adam holds fp32 masters (``nn/common.py MasterWeights``), the rollout runs the
+    bf16 network (the kernels' bf16 routes, ``MemoryReadout`` and ``DecodeTail``
+    with their bf16 backward), each clip's bf16 gradients are added to the
+    masters' fp32 ones, and after the update the masters are rounded into the
+    network.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from yolo_puncture_tpu_torch.models.yolo import pyramid_channels_for  # noqa: F401  (the JAX module's name)
+from yolo_puncture_tpu_torch.nn.common import MasterWeights
 from yolo_puncture_tpu_torch.track.core import TrackerCore
 from yolo_puncture_tpu_torch.track.network import clip
 
@@ -340,9 +347,9 @@ def make_yolo_pyramid_fn(
 
 
 class PropagationTrainer:
-    """Adam over the tracker's parameters on batches of synthetic clips.
-    ``window_mix`` > 0 trains that fraction of the steps through the windowed
-    program (``build_windowed_propagation_loss``)."""
+    """Adam over the tracker's parameters (their fp32 masters, ``self.params``)
+    on batches of synthetic clips.  ``window_mix`` > 0 trains that fraction of the
+    steps through the windowed program (``build_windowed_propagation_loss``)."""
 
     def __init__(
         self,
@@ -364,7 +371,8 @@ class PropagationTrainer:
         self.clip_fn = clip_fn or make_synthetic_clip
         self.window_mix = float(window_mix)
         self.window = int(window)
-        self.params = [p for p in core.net.parameters() if p.requires_grad]
+        self.weights = MasterWeights(core.net)
+        self.params = self.weights.masters
         self.opt = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         self.loss_fn = build_propagation_loss(core, pyramid_fn=pyramid_fn)
         self.window_loss_fn = None
@@ -394,9 +402,9 @@ class PropagationTrainer:
         return tuple(torch.from_numpy(np.stack(a)).to(dev) for a in (imgs, msks, valids))
 
     def loss_and_grads(self, images, onehot, obj_valid, windowed: bool = False) -> float:
-        """The batch's mean loss, its gradient accumulated into the parameters'
-        ``.grad`` (cleared first; a parameter the loss does not reach gets zeros,
-        as the JAX gradient has them); returns the loss."""
+        """The batch's mean loss, its gradient accumulated in fp32 into the
+        masters' ``.grad`` (cleared first; a parameter the loss does not reach gets
+        zeros, as the JAX gradient has them); returns the loss."""
         loss_fn = self.window_loss_fn if windowed else self.loss_fn
         self.core.net.eval()
         for p in self.params:
@@ -406,15 +414,21 @@ class PropagationTrainer:
         for b in range(B):
             loss = loss_fn(images[b], onehot[b], obj_valid[b]) / B
             loss.backward()
+            self.weights.collect_grads()
             total += float(loss.detach())
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         return total
 
+    def update(self) -> None:
+        """Adam on the masters' gradients, then the masters into the network."""
+        self.opt.step()
+        self.weights.copy_to_module()
+
     def train_step(self, images, onehot, obj_valid, windowed: bool = False) -> float:
         loss = self.loss_and_grads(images, onehot, obj_valid, windowed)
-        self.opt.step()
+        self.update()
         return loss
 
     def fit(self, steps: int = 200, log_every: int = 50):

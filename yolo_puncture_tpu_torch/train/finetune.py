@@ -12,6 +12,11 @@ Counterpart of ``yolo_puncture_tpu/train/finetune.py``:
     become the batch-size-weighted mean, over the fit's batches, of its true batch
     mean and biased variance.
 
+A bf16 model trains as the JAX package trains ``dtype=bfloat16``: Adam holds fp32
+masters (``nn/common.py MasterWeights``), the forward and backward run the bf16
+model, its gradients are widened into the masters', and the masters are rounded
+into the model after each update; BatchNorm's statistics stay fp32.
+
 The models train with flax's BatchNorm (``nn/common.py BatchNorm2d``: the batch's
 biased variance in the running statistics, EfficientNet's momentum 0.99, VAN's and
 U²-Net's 0.9 as the JAX package sets them).  VAN has no dropout: its ``forward``
@@ -32,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_puncture_tpu_torch.models.efficientnet import preprocess_classifier
-from yolo_puncture_tpu_torch.nn.common import BatchNorm2d
+from yolo_puncture_tpu_torch.nn.common import BatchNorm2d, MasterWeights
 
 
 @torch.no_grad()
@@ -78,9 +83,18 @@ def recalibrate_batch_stats(model: torch.nn.Module, batches: Iterable[torch.Tens
     return out
 
 
-def _adam(params, lr: float) -> torch.optim.Adam:
+def _adam(weights: MasterWeights, lr: float) -> torch.optim.Adam:
     # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the square root
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(weights.masters, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adam_step(opt: torch.optim.Adam, weights: MasterWeights, loss: torch.Tensor) -> None:
+    """The loss's gradients into the fp32 masters, Adam, the masters into the model."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    weights.collect_grads()
+    opt.step()
+    weights.copy_to_module()
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +125,8 @@ class ClassifierFinetuner:
     def __init__(self, net, lr: float = 1e-4, seed: int = 0):
         """net: ``tasks/classify.py ClassifierNet``; its model is trained in place."""
         self.net = net
-        self.opt = _adam(net.model.parameters(), lr)
+        self.weights = MasterWeights(net.model)
+        self.opt = _adam(self.weights, lr)
         self.rng = np.random.default_rng(seed)
         self.dropout = torch.Generator(net.device).manual_seed(seed)
 
@@ -123,9 +138,7 @@ class ClassifierFinetuner:
         x = preprocess_classifier(images_u8, self.net.input_size, model.dtype)
         logits = model(x, dropout_generator=self.dropout).float()
         loss = F.cross_entropy(logits, labels.long())
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
+        _adam_step(self.opt, self.weights, loss)
         model.eval()
         return loss.detach(), (logits.argmax(-1) == labels).float().mean()
 
@@ -197,7 +210,8 @@ class UNetFinetuner:
     def __init__(self, predictor, lr: float = 1e-4, seed: int = 0):
         """predictor: ``tasks/unet.py UNetPredictor``; its model is trained in place."""
         self.predictor = predictor
-        self.opt = _adam(predictor.model.parameters(), lr)
+        self.weights = MasterWeights(predictor.model)
+        self.opt = _adam(self.weights, lr)
         self.rng = np.random.default_rng(seed)
 
     def step(self, images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -206,9 +220,7 @@ class UNetFinetuner:
         model = self.predictor.model
         model.train()
         loss = u2net_loss(model(images.permute(0, 3, 1, 2)), masks)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
+        _adam_step(self.opt, self.weights, loss)
         model.eval()
         return loss.detach()
 
@@ -216,13 +228,12 @@ class UNetFinetuner:
                    log_every: int = 20) -> Optional[float]:
         """As ``ClassifierFinetuner.fit_arrays``; returns the last step's loss."""
         dev = self.predictor.device
-        dtype = next(self.predictor.model.parameters()).dtype
         n = len(images_rgb01)
         it = 0
         loss = None
 
         def tensor(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, torch.float32)
 
         for _ in range(epochs):
             order = self.rng.permutation(n)

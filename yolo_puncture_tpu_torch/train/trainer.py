@@ -17,8 +17,12 @@ A parameter the loss does not reach gets a zero gradient, so that it still
 decays and carries momentum as under optax.  Checkpoints are ``torch.save`` of
 the payload the JAX trainer gives orbax (parameters, BatchNorm statistics,
 step, momentum buffers, EMA) in ``{ckpt_dir}/step_{N}.pt``; ``resume`` reads
-them.  ``TrainState`` holds the model's own tensors, which each step updates in
-place.  There is one device: ``mesh`` raises.
+them.  ``TrainState`` holds the model's fp32 master weights (``nn/common.py
+MasterWeights``): for an fp32 model its own tensors, which each step updates in
+place; for a bf16 model (``dtype=torch.bfloat16``, flax's fp32 parameters under
+a bf16 ``dtype``) fp32 copies that SGD, the momentum, weight decay, clipping and
+the EMA act on, rounded into the model after each step, and whose fp32 values
+the checkpoints hold.  There is one device: ``mesh`` raises.
 """
 
 from __future__ import annotations
@@ -32,12 +36,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from yolo_puncture_tpu_torch.nn.common import MasterWeights
 from yolo_puncture_tpu_torch.train.losses import DEFAULT_HYP, detection_loss
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: Dict[str, torch.Tensor]         # the model's parameters by state-dict name (the live tensors)
+    params: Dict[str, torch.Tensor]         # the fp32 master weights by state-dict name (an fp32 model's own tensors)
     batch_stats: Dict[str, torch.Tensor]    # its BatchNorm running statistics (live)
     opt_state: Dict[str, torch.Tensor]      # SGD momentum buffers by parameter name
     step: int = 0
@@ -96,6 +101,7 @@ class Trainer:
         self.clip_norm = clip_norm
         self._seed = seed
         self.opt = None
+        self.weights = None
 
     @property
     def device(self) -> torch.device:
@@ -103,9 +109,10 @@ class Trainer:
 
     def init_state(self, example_batch=None) -> TrainState:
         """The model's weights as they are (its constructor's seeded init or loaded
-        weights: the JAX trainer draws them from ``PRNGKey(seed)`` here), zero
-        momentum, step 0."""
-        named = dict(self.model.named_parameters())
+        weights, fp32 as ``fp32_value`` gives them: the JAX trainer draws them from
+        ``PRNGKey(seed)`` here), zero momentum, step 0."""
+        self.weights = MasterWeights(self.model)
+        named = self.weights.named
         decay = [p for p in named.values() if p.ndim >= 2]
         no_decay = [p for p in named.values() if p.ndim < 2]
         self.opt = torch.optim.SGD(
@@ -149,14 +156,20 @@ class Trainer:
 
     def loss_and_grads(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One train-mode forward and backward: (total, losses), the gradients in
-        the parameters' ``.grad`` (zeros where the loss does not reach)."""
+        the fp32 masters' ``.grad`` (zeros where the loss does not reach)."""
+        if self.weights is None:
+            self.weights = MasterWeights(self.model)
         self.model.train()
         for p in self.model.parameters():
+            p.grad = None
+        masters = self.weights.masters
+        for p in masters:
             p.grad = None
         out = self.model(batch["images"])
         total, losses = detection_loss(out, batch, nc=self.nc, hyp=self.hyp)
         total.backward()
-        for p in self.model.parameters():
+        self.weights.collect_grads()
+        for p in masters:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         return total, losses
@@ -176,6 +189,7 @@ class Trainer:
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
+        self.weights.copy_to_module()
         if state.ema_params is not None:
             # ultralytics' ModelEMA ramp: d = decay · (1 − e^(−step/2000))
             d = float(np.float32(self.ema_decay) * (1.0 - np.exp(np.float32(-(state.step + 1) / 2000.0))))
@@ -256,9 +270,10 @@ class Trainer:
         return torch.load(latest_checkpoint(path), map_location="cpu", weights_only=True)
 
     def restore(self, state: TrainState, restored: Dict[str, Any]) -> TrainState:
-        """Copy a loaded payload into ``state``'s live tensors: parameters and
-        statistics, the step, the EMA (or the parameters where the payload has
-        none), and the momentum buffers where it has them."""
+        """Copy a loaded payload into ``state``'s live tensors: parameters (the
+        masters, then rounded into the model) and statistics, the step, the EMA (or
+        the parameters where the payload has none), and the momentum buffers where
+        it has them."""
         with torch.no_grad():
             for tree, src in ((state.params, restored["params"]), (state.batch_stats, restored.get("batch_stats", {}))):
                 for n, t in src.items():
@@ -268,6 +283,8 @@ class Trainer:
                     state.ema_params[n].copy_(t)
             for n, t in (restored.get("opt_state") or {}).items():
                 state.opt_state[n].copy_(t)
+        if self.weights is not None:
+            self.weights.copy_to_module()
         state.step = int(restored.get("step", 0))
         return state
 

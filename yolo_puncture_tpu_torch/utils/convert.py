@@ -526,8 +526,11 @@ def export_tracker_msgpack(net: torch.nn.Module, dst=None) -> bytes:
     """The tracker's weights as a flax msgpack checkpoint (``write_msgpack`` of
     ``tracker_variables``): ``flax.serialization.from_bytes`` of the JAX package's
     ``TrackerCore`` variables and the port's ``TrackerCore(variables=path)`` both
-    read it."""
-    return write_msgpack(tracker_variables(net.state_dict()), dst)
+    read it.  A bf16 network writes its fp32 weights (``nn/common.py
+    fp32_state_dict``): those of its trainer's masters."""
+    from yolo_puncture_tpu_torch.nn.common import fp32_state_dict
+
+    return write_msgpack(tracker_variables(fp32_state_dict(net)), dst)
 
 
 def load_tracker_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
