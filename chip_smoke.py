@@ -113,7 +113,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
      ``ClassifierFinetuner`` on VAN-B0 (B 16); SAM ``vit_b`` at 1024² (encoder and a
      64-point decoder batch against the CPU, the automatic mask generator on a
      720×1280 frame, twice, equal), ``segment_anything(frame, "vit_l")``, a ``vit_h``
-     encoder pass, each encoder against its FLOP bound;
+     encoder pass, each encoder against its FLOP bound; bf16 training in every
+     trainer (3za, ``bf16_train_phase``); data and tensor parallelism (3zb,
+     ``dp_phase``): ``Trainer(mesh=make_mesh())`` on one rank over NCCL against
+     ``Trainer()``, then four spawned ranks on the one card over gloo (CUDA
+     tensors; NCCL refuses two ranks on one device) in layouts 4×1 and 2×2
+     (YOLOv10-S's large kernels split over ``model``), each step of YOLOv10-S seg
+     at 640² on a global batch of 8 polygons against the single-process step,
+     every rank's state equal to rank 0's, ms a step and bytes a step;
+     ``dryrun_multichip(4)`` (a DP×TP training step, then the multi-video serving
+     step through ``proto_decode`` on every rank, held to one process); the same
+     over NCCL with one rank a card where the machine has several cards;
   4. run the same calls on the CPU (one frame of predict; the tracker up to its
      first window; one batch of the pipeline's device step) and compare;
   5. run the tracker with long-term memory on for 7 frames, once with the
@@ -3760,6 +3770,229 @@ def bf16_train_phase(smi: str, device=None, track_argv=(), steps=TRACK_TRAIN_STE
     return launches, backward
 
 
+# ---------------------------------------------------------------------------
+# 3zb: data and tensor parallelism (parallel/mesh.py, Trainer(mesh=), the DP×TP dry run)
+# ---------------------------------------------------------------------------
+
+DP_MODEL = "yolo10s-seg"
+DP_WORLD = 4
+DP_LAYOUTS = ((4, 1), (2, 2))          # (data, model); 2×2 splits the kernels param_shardings(min_size=2**14) picks
+DP_TIMED_STEPS = 3
+DP_TRAINER = dict(nc=1, warmup_steps=0, total_steps=10)      # lr 0.01 at the checked step: the weights move
+DP_SERVE_SCORE_TOL = 1e-4              # the dry run's serving step against one process: scores, as PIPE_CONF_TOL
+DP_RANK_TIMEOUT = 600.0
+
+
+def dp_state(model) -> dict:
+    """A model's floating-point state (parameters, BatchNorm statistics) on the host."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def dp_step(imgsz, batch, device, mesh=None, split=False, steps=0, init=None) -> dict:
+    """``Trainer`` of ``DP_MODEL`` (with ``mesh`` or without) from the seeded init, or from the
+    state ``init`` (the seeded init's BatchNorm statistics come from a forward on
+    the host, whose sums depend on its thread count): one checked step on the
+    global ``batch``, then ``steps`` timed steps.  Returns the checked step's
+    losses, the state before and after it, ms a step and, under a mesh, the bytes
+    each collective moved a step on this rank."""
+    from yolo_puncture_tpu_torch import YOLO, create_model
+    from yolo_puncture_tpu_torch.parallel import mesh as pm
+    from yolo_puncture_tpu_torch.train import Trainer
+
+    if init is None:
+        model = YOLO(DP_MODEL, nc=1, seed=0, device=device).model
+    else:
+        model = create_model(DP_MODEL, nc=1)
+        model.load_state_dict(init, strict=False)
+        model = model.to(device)
+    tr = Trainer(model, imgsz=imgsz, mesh=mesh, **DP_TRAINER)
+    state = tr.init_state()
+    layers = pm.shard_model(mesh, model, pm.param_shardings(mesh, model, min_size=2 ** 14)) if split else []
+    out = {"before": dp_state(model), "split_layers": len(layers)}
+    state, m = tr.train_step(state, batch)
+    out["losses"] = {k: float(v) for k, v in m.items() if k != "lr"}
+    out["after"] = dp_state(model)
+    out["model"] = model
+    if steps:
+        traffic = dict(mesh.traffic) if mesh is not None else {}
+        sync()
+        t = time.perf_counter()
+        for _ in range(steps):
+            state, m = tr.train_step(state, batch)
+        float(m["total"])
+        sync()
+        out["ms"] = (time.perf_counter() - t) * 1e3 / steps
+        if mesh is not None:
+            out["bytes_per_step"] = {k: (v - traffic.get(k, 0)) / steps for k, v in mesh.traffic.items()}
+    return out
+
+
+def hold_dp_step(what: str, got: dict, ref: dict) -> dict:
+    """``got``'s checked step against the single process's ``ref`` on the same
+    global batch and init: each loss within ``DET_STEP_LOSS_REL``; the move of
+    every parameter and BatchNorm statistic, ‖Δgot − Δref‖ ≤ rel·‖Δref‖ +
+    glob·‖all of Δref‖ (``grads_match``'s rule and limits).  Returns the largest
+    differences."""
+    for k, v in ref["losses"].items():
+        if not (np.isfinite(got["losses"][k]) and abs(got["losses"][k] - v) <= DET_STEP_LOSS_REL * abs(v) + 1e-7):
+            raise AssertionError(f"{what}: loss {k} {got['losses'][k]} against the single process's {v}")
+    for name, t in got["before"].items():
+        if not torch.equal(t, ref["before"][name]):
+            raise AssertionError(f"{what}: {name} did not start from the single process's init")
+    moves = {n: (got["after"][n].double() - got["before"][n].double(), ref["after"][n].double() - t.double())
+             for n, t in ref["before"].items()}
+    total = float(torch.sqrt(sum((r ** 2).sum() for _, r in moves.values())))
+    worst, worst_abs = 0.0, 0.0
+    for n, (g, r) in moves.items():
+        err = float((g - r).norm())
+        lim = DET_STEP_GRAD_REL * float(r.norm()) + DET_STEP_GRAD_GLOBAL * total
+        worst, worst_abs = max(worst, err / lim), max(worst_abs, float((g - r).abs().max()))
+        if err > lim:
+            raise AssertionError(f"{what}: {n} moved {err:.3g} away from the single process's move (limit {lim:.3g})")
+    loss_rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-30) for k, v in ref["losses"].items())
+    return {"loss_rel": loss_rel, "state_max_abs": worst_abs, "share_of_limit": worst}
+
+
+def dp_rank(rank, world_size, init_method, layouts, backend, device_type, batch, imgsz, steps, init):
+    """One rank of 3zb (b)/(d): for each layout a mesh over the group, the checked
+    step and the timed steps; whether this rank's state equals rank 0's, bit for
+    bit; rank 0 also returns its state."""
+    import torch.distributed as dist
+
+    from yolo_puncture_tpu_torch.parallel import mesh as pm
+
+    device = torch.device("cuda", rank % torch.cuda.device_count()) if device_type == "cuda" else torch.device("cpu")
+    out = {}
+    with pm.process_group(rank, world_size, init_method, backend, device):
+        for shape in layouts:
+            mesh = pm.make_mesh(shape, devices=device_type)
+            r = dp_step(imgsz, batch, device, mesh=mesh, split=shape[1] > 1, steps=steps, init=init)
+            model = r.pop("model")
+            flat = torch.cat([v.detach().reshape(-1).double() for v in model.state_dict().values()
+                              if v.is_floating_point()])
+            first = flat.clone()
+            dist.broadcast(first, src=0)
+            r["same_as_rank0"] = bool(torch.equal(flat, first))
+            r["backend"] = dist.get_backend()
+            r["device"] = f"cuda:{torch.cuda.current_device()}" if device_type == "cuda" else "cpu"
+            if rank:
+                r.pop("after"), r.pop("before")
+            out[shape] = r
+            del model, flat, first
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def dp_layouts_run(smi, what, ref, layouts, backend, device, det_batch, imgsz, steps, world) -> None:
+    """3zb (b)/(d): ``world`` ranks (spawned) in each layout against the single process's step."""
+    from yolo_puncture_tpu_torch.parallel import mesh as pm
+
+    t = time.perf_counter()
+    res = pm.spawn_ranks(dp_rank, world, (layouts, backend, device.type, det_batch, imgsz, steps, ref["before"]),
+                         timeout=DP_RANK_TIMEOUT, threads=max(1, (os.cpu_count() or 1) // world))
+    log(f"{what}: {world} ranks spawned and joined in {time.perf_counter() - t:.1f} s; ranks (backend, device): "
+        f"{[(r[layouts[0]]['backend'], r[layouts[0]]['device']) for r in res]}")
+    for shape in layouts:
+        got = res[0][shape]
+        stats = hold_dp_step(f"{what} {shape[0]}x{shape[1]}", got, ref)
+        same = [r[shape]["same_as_rank0"] for r in res]
+        log(f"main path ({what}, layout {shape[0]}x{shape[1]}, {got['split_layers']} layers split over 'model'): "
+            f"against the single-process step {json.dumps(stats)}; every rank's state equal to rank 0's: {same}; "
+            f"{got['ms']:.1f} ms a step (rank 0, {steps} steps) against {ref['ms']:.1f} single-process; bytes a step "
+            f"on rank 0 {json.dumps(got['bytes_per_step'])} [{smi}]")
+        if not all(same):
+            raise AssertionError(f"{what} {shape}: a rank's parameters differ from rank 0's")
+
+
+def dp_phase(smi: str, imgsz: int = 640, device=None, steps: int = DP_TIMED_STEPS) -> dict:
+    """3zb: data and tensor parallelism on YOLOv10-S seg at ``imgsz``², global
+    batch ``DET_TRAIN_B`` of polygons.  (a) ``Trainer(mesh=make_mesh())`` on a group of
+    one rank over NCCL against ``Trainer()``; (b) ``DP_WORLD`` spawned ranks on the
+    one card over gloo (CUDA tensors) in layouts 4×1 and 2×2 (its kernels split
+    over ``model``), each against the single process, every rank's state equal to
+    rank 0's, ms a step and bytes a step beside the single process's; (c)
+    ``dryrun_multichip(DP_WORLD)``, its serving outputs against one process; (d)
+    (b) over NCCL, one rank a card, where there are cards enough.  Returns the
+    ``proto_decode`` launches of the dry run's ranks."""
+    from yolo_puncture_tpu_torch import YOLO
+    from yolo_puncture_tpu_torch.parallel import mesh as pm
+    from yolo_puncture_tpu_torch.parallel.dryrun import dryrun_frames, dryrun_multichip, video_step
+    from yolo_puncture_tpu_torch.utils.device import resolve_device
+
+    t_phase = time.perf_counter()
+    device = resolve_device(device)
+    world = DP_WORLD
+    det_batch = polygon_batch(DET_TRAIN_B, imgsz, seed=8)
+    ref = dp_step(imgsz, det_batch, device, steps=steps)
+    del ref["model"]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"single-process step {DP_MODEL} {imgsz}^2 B {DET_TRAIN_B}: losses {json.dumps(ref['losses'])}; {ref['ms']:.1f} ms a "
+        f"step ({steps} steps) [{smi}]")
+
+    # (a) one rank over NCCL: the mesh's code path with every collective over a group of one
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with pm.process_group(0, 1, f"tcp://127.0.0.1:{pm.free_port()}", backend, device):
+        got = dp_step(imgsz, det_batch, device, mesh=pm.make_mesh(devices=device.type), init=ref["before"])
+        del got["model"]
+    stats = hold_dp_step("world size 1", got, ref)
+    log(f"main path (Trainer(mesh=make_mesh()) on one rank over {backend}): against Trainer() on the same batch "
+        f"{json.dumps(stats)} (largest difference of a parameter or statistic {stats['state_max_abs']:.3g}) [{smi}]")
+    del got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) four ranks on the one card: gloo on CUDA tensors (NCCL refuses two ranks on one device)
+    layouts = tuple(s for s in DP_LAYOUTS if s[0] * s[1] == world)
+    dp_layouts_run(smi, f"gloo, {world} ranks on one {device.type} device", ref, layouts, "gloo", device, det_batch,
+                   imgsz, steps, world)
+
+    # (c) the DP×TP dry run: a training step, then the multi-video serving step
+    t = time.perf_counter()
+    results = dryrun_multichip(world, device=device)
+    r0 = results[0]
+    one = YOLO("yolo10s-seg", nc=1, seed=0, device=device).model               # the dry run's weights after its step
+    one.load_state_dict(r0["state_dict"])
+    one.eval()
+    rng = np.random.default_rng(0)
+    rng.uniform(size=(r0["mesh"]["data"], 64, 64, 3))                     # the training batch's draw
+    frames = torch.from_numpy(dryrun_frames(2 * r0["mesh"]["data"], rng)).to(device)
+    acc = torch.zeros(frames.shape[0], device=device)
+    for _ in range(2):
+        boxes, scores, masks, acc = video_step(one, frames, acc)
+    launches = [r["proto_decode_launches"] for r in results]
+    for r in results:
+        box_err = float((r["boxes"] - boxes.cpu()).abs().max())
+        score_err = float((r["scores"] - scores.cpu()).abs().max())
+        agree = float((r["masks"] == masks.cpu()).float().mean())
+        acc_err = float(((r["acc"] - acc.cpu()).abs() / acc.cpu().abs().clamp_min(1.0)).max())
+        if not (box_err <= PIPE_BOX_TOL and score_err <= DP_SERVE_SCORE_TOL and agree >= PIPE_MASK_AGREE
+                and acc_err <= PIPE_BOX_TOL):
+            raise AssertionError(f"dry run rank at {r['coordinate']}: serving outputs against one process: boxes "
+                                 f"{box_err}, scores {score_err}, masks equal {agree}, accumulator {acc_err}")
+    log(f"main path (dryrun_multichip({world}), {time.perf_counter() - t:.1f} s): mesh {r0['mesh']}, loss "
+        f"{r0['loss']:.4f}, {len(r0['split_layers'])} layers split over 'model'; ranks (backend, device) "
+        f"{[(r['backend'], r['device']) for r in results]}; serving outputs of all {frames.shape[0]} videos equal "
+        f"to one process's within boxes {PIPE_BOX_TOL} px, scores {DP_SERVE_SCORE_TOL}, masks {PIPE_MASK_AGREE}; "
+        f"proto_decode launches per rank {launches}; bytes on rank 0 {json.dumps(r0['traffic'])} [{smi}]")
+    if device.type == "cuda" and min(launches) <= 0:
+        raise AssertionError("a dry-run rank decoded its masks without launching proto_decode")
+    del one, results
+
+    # (d) one rank a card over NCCL
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n_cards >= 2:
+        n = min(n_cards, world)
+        dp_layouts_run(smi, f"nccl, {n} ranks on {n} cards", ref, tuple(s for s in DP_LAYOUTS if s[0] * s[1] == n)
+                       or ((n, 1),), "nccl", device, det_batch, imgsz, steps, n)
+    else:
+        log(f"3zb (d): {n_cards} card(s) visible; the NCCL run of (b), one rank a card, waits for a machine with more "
+            f"than one card")
+    log(f"phase 3zb (data and tensor parallelism): {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {"proto_decode": sum(launches)}
+
+
 def sync() -> None:
     """Wait for the card (a no-op without one: the phases rehearse on the CPU)."""
     if torch.cuda.is_available():
@@ -4328,6 +4561,10 @@ def main() -> int:
     # -- 3za. bf16 training: fp32 masters, bf16 compute, in every trainer --------------------------------------
     bf16_launches, bf16_backward = bf16_train_phase(smi, fp32=fp32_train)
     for k, n in bf16_launches.items():
+        launches[k] += n
+
+    # -- 3zb. data and tensor parallelism: Trainer(mesh=) on 1 and 4 ranks, the DP×TP dry run -------------------
+    for k, n in dp_phase(smi, imgsz).items():
         launches[k] += n
 
     # -- 4. the same calls on the CPU ------------------------------------------------------

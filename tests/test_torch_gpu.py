@@ -5,7 +5,8 @@ against the same code on the CPU; the backward of the tracker's two kernels
 fine-tuners, ``yolo_cli calibrate`` / ``export`` and the bench's other modes
 (``chip_smoke.py`` phases 3t–3w at reduced sizes); the int8 convolution, int8
 ``predict`` and the int8-ring tracker against their CPU runs (phase 3y (a), (b),
-(d) at reduced sizes); VAN and SAM (phase 3z at reduced sizes).
+(d) at reduced sizes); VAN and SAM (phase 3z at reduced sizes); data and tensor
+parallelism (phase 3zb at a reduced size).
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine that has
@@ -51,6 +52,7 @@ from chip_smoke import (
     check_readout_grad_case,
     check_tail_bf16_grad_case,
     check_tail_grad_case,
+    dp_phase,
     export_phase,
     finetune_phase,
     int8_distance,
@@ -502,3 +504,12 @@ def test_van_and_sam_on_the_card_match_the_cpu(cuda, tmp_path):
                     points_per_side=8, sam_batch=16)
     assert got["proto_decode"] > 0 and got["proto_decode_bf16"] > 0
 
+
+
+@pytest.mark.gpu
+def test_data_parallel_phase_on_the_card(cuda):
+    """3zb at 128²: ``Trainer(mesh=)`` on one NCCL rank and on four gloo ranks on the
+    card (4×1, 2×2) against the single-process step, every rank's state equal, and
+    ``dryrun_multichip(4)`` with ``proto_decode`` launched on every rank."""
+    got = dp_phase("gpu test", imgsz=128, device=cuda, steps=1)
+    assert got["proto_decode"] >= 8

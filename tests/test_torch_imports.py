@@ -55,7 +55,8 @@ def test_walk_finds_every_layer():
               "utils.png", "utils.plotting", "native", "apps", "apps.track_video", "apps.auto_speed_calc",
               "apps.evaluate_speed", "apps.speed_freq", "apps.serve", "apps.app", "apps.webui", "apps.yolo_cli",
               "models.u2net", "tasks.unet", "track.train", "apps.train_tracker", "train", "train.assigner",
-              "train.losses", "train.trainer", "train.data", "train.metrics", "train.finetune", "nn.quant"):
+              "train.losses", "train.trainer", "train.data", "train.metrics", "train.finetune", "nn.quant",
+              "parallel", "parallel.mesh", "parallel.dryrun"):
         assert f"yolo_puncture_tpu_torch.{m}" in names
 
 

@@ -9,10 +9,12 @@
 The JAX CLI's ``key=value`` arguments and printed lines.  ``train``
 (``data``, ``model``, ``epochs``, ``imgsz``, ``batch``, ``nc``, ``project``,
 the augmentation keys, ``augment``, ``lr0``, ``clip``, ``close_mosaic``,
-``ckpt_every``, ``resume``) fine-tunes with ``train/trainer.py Trainer`` on one
-card, from the weights ``YOLO(model)`` loads (a seeded init for a bare name),
-and writes ``{project}/step_N.pt``; it prints the trainer's ``epoch … step …``
-lines and ``training done: …``.  ``val`` (``data``, ``model``, ``imgsz``,
+``ckpt_every``, ``resume``) fine-tunes with ``train/trainer.py Trainer`` from the
+weights ``YOLO(model)`` loads (a seeded init for a bare name), data-parallel
+over the largest number of visible cards that divides ``batch`` (one process a
+card, NCCL; as the JAX CLI takes the devices), and writes
+``{project}/step_N.pt``; it prints the trainer's ``epoch … step …`` lines and
+``training done: …`` (the first rank alone).  ``val`` (``data``, ``model``, ``imgsz``,
 ``conf``, ``nc``, ``arch``, ``use_ema``) reads a port checkpoint (a
 ``step_N.pt`` file or a directory of them, built as ``arch``) or anything
 ``YOLO`` reads (a flax msgpack, an ultralytics ``.pt``, a name), predicts the
@@ -71,7 +73,44 @@ def cmd_predict(kv, device=None):
     return results
 
 
+def data_parallel_size(batch: int, n_devices: int) -> int:
+    """The JAX CLI's rule: the largest device count that divides the batch."""
+    return max(d for d in range(1, n_devices + 1) if batch % d == 0)
+
+
 def cmd_train(kv, device=None):
+    """Data-parallel over the largest number of visible cards that divides
+    ``batch``: with more than one, ``dp`` ranks (spawned, one card each, NCCL)
+    each run ``train_rank``, and this returns None; else one process trains here
+    and this returns the state."""
+    import torch
+
+    from yolo_puncture_tpu_torch.parallel.mesh import spawn_ranks
+    from yolo_puncture_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    dp = data_parallel_size(int(kv.get("batch", 16)), n_dev)
+    if dp > 1:
+        spawn_ranks(train_rank, dp, (kv, "nccl", "cuda"), timeout=None)
+        return None
+    return _train(kv, dev, None)
+
+
+def train_rank(rank: int, world_size: int, init_method: str, kv, backend: str, device_type: str):
+    """The body of one rank of a data-parallel ``train``: its card (or the CPU),
+    the process group on ``backend``, a ``(world_size, 1)`` mesh, then the run;
+    the first rank prints and writes the checkpoints.  Returns the step reached."""
+    import torch
+
+    from yolo_puncture_tpu_torch.parallel.mesh import make_mesh, process_group
+
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    with process_group(rank, world_size, init_method, backend, device):
+        return int(_train(kv, device, make_mesh((world_size, 1), devices=device_type)).step)
+
+
+def _train(kv, device, mesh):
     from yolo_puncture_tpu_torch import YOLO
     from yolo_puncture_tpu_torch.train import Trainer
     from yolo_puncture_tpu_torch.train.data import SegDataset
@@ -93,6 +132,7 @@ def cmd_train(kv, device=None):
         lr0=float(kv.get("lr0", 0.01)),
         total_steps=epochs * steps_per_epoch,
         warmup_steps=min(3 * steps_per_epoch, 1000),
+        mesh=mesh,
         clip_norm=float(kv.get("clip", 0.0)),
     )
     state = trainer.fit(
@@ -101,7 +141,8 @@ def cmd_train(kv, device=None):
         ckpt_every=int(kv.get("ckpt_every", 1000)),
         resume=kv.get("resume"),
     )
-    print(f"training done: {int(state.step)} steps; checkpoints in {ckpt}")
+    if trainer.is_writer:
+        print(f"training done: {int(state.step)} steps; checkpoints in {ckpt}")
     return state
 
 

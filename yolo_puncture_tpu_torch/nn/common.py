@@ -30,7 +30,8 @@ scale is recorded, elsewhere it is the plain convolution.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +40,27 @@ from torch import nn
 from yolo_puncture_tpu_torch.nn import quant
 
 BN_EPS = 1e-3
+_GLOBAL_BATCH = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(batch_sum: Callable[[torch.Tensor], torch.Tensor], shards: int):
+    """Inside the block this thread's batch-wide reductions span a global batch
+    of ``shards`` equal shards, one a process: ``BatchNorm2d``'s training sums and
+    ``train/losses.py``'s normalisers go through ``batch_sum``, a sum over the
+    shards whose backward sums the gradient too.  ``parallel/mesh.py``'s
+    ``with mesh:`` installs the all-reduce over ``data``."""
+    prev = global_batch_hook()
+    _GLOBAL_BATCH.hook = (batch_sum, shards)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.hook = prev
+
+
+def global_batch_hook() -> Optional[Tuple[Callable[[torch.Tensor], torch.Tensor], int]]:
+    """``(batch_sum, shards)`` of the innermost ``global_batch``, or None in one process."""
+    return getattr(_GLOBAL_BATCH, "hook", None)
 
 
 def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -178,8 +200,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics over (N, H, W) in fp32 (or wider), the variance E[x²] − E[x]² floored at 0
     (biased, flax's fast variance), and ``running ← (1 − momentum)·running +
     momentum·batch`` with that biased variance (torch's own update takes the
-    unbiased one); momentum 0.03 is flax's 0.97.  ``eval()`` is unchanged, and so
-    is a layer inside ``torch_batch_statistics``."""
+    unbiased one); momentum 0.03 is flax's 0.97.  Inside ``global_batch``
+    (a data-parallel step) the statistics are the global batch's: the sums of x
+    and x² go through its differentiable sum over the shards (SyncBatchNorm's
+    semantics), so the running statistics stay the same on every rank.  ``eval()`` is unchanged, and so is a layer inside
+    ``torch_batch_statistics``."""
 
     flax_statistics = True
 
@@ -187,8 +212,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not (self.training and self.flax_statistics):
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        hook = global_batch_hook()
+        if hook is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        else:
+            batch_sum, shards = hook
+            sums = batch_sum(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+            moments = sums / (xf.numel() // xf.shape[1] * shards)
+            mean, var = moments[0], moments[1] - moments[0] * moments[0]
         var = torch.maximum(var, var.new_zeros(()))
         if self.track_running_stats:
             keep = 1.0 - self.momentum

@@ -12,6 +12,13 @@ they are the JAX package's (B, A, C) rows.  The mask loss takes a fixed
 order, as ``jax.lax.top_k``), and forms their logits ``coeffs @ protos`` with
 ``torch.einsum``: a logit with a gradient, which the JAX package too computes
 outside any Pallas kernel.
+
+Inside ``nn/common.py global_batch`` (a data-parallel step) each rank
+holds a shard of the global batch, and every normaliser is the global batch's:
+the target-score sum of each branch and the image count of the mask loss's mean
+are summed over the shards, and the total is scaled by the global batch size.
+The components and the total are then this rank's shares: they sum over
+the shards to the global batch's values, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from yolo_puncture_tpu_torch.nn.common import dfl_expectation
+from yolo_puncture_tpu_torch.nn.common import dfl_expectation, global_batch_hook
 from yolo_puncture_tpu_torch.nn.heads import dist2bbox, make_anchors
 from yolo_puncture_tpu_torch.train.assigner import bbox_ciou, task_aligned_assign, top_k_indices
 
@@ -38,6 +45,13 @@ def bbox2dist(bbox_xyxy, anchor_points, reg_max: int):
     lt = anchor_points - bbox_xyxy[..., :2]
     rb = bbox_xyxy[..., 2:] - anchor_points
     return torch.cat([lt, rb], dim=-1).clamp(0, reg_max - 1 - 0.01)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or float64 where it is: the loss of a float64 model stays
+    float64 (the JAX package takes fp32; a float64 run is a reference, and a
+    data-parallel step holds it to the single-process one at float64's rounding)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def optax_sigmoid_bce(logits, labels):
@@ -77,10 +91,13 @@ def _mask_loss(coeffs, proto, gt_masks, t_boxes, t_gt_idx, weight, max_pos: int)
     xs = torch.arange(Wp, dtype=torch.float32, device=coeffs.device)[None, None, None, :]
     bx = boxes_p[..., None, None]
     inside = (xs >= bx[:, :, 0]) & (xs < bx[:, :, 2]) & (ys >= bx[:, :, 1]) & (ys < bx[:, :, 3])
-    bce = optax_sigmoid_bce(m_pred.float(), m_gt) * inside
+    bce = optax_sigmoid_bce(_wide(m_pred), m_gt) * inside
     area = ((boxes_p[..., 2] - boxes_p[..., 0]) * (boxes_p[..., 3] - boxes_p[..., 1])).clamp_min(1.0)
     per_pos = bce.sum((2, 3)) / area
     per_img = torch.where(sel_valid, per_pos, per_pos.new_zeros(())).sum(1) / sel_valid.sum(1).clamp_min(1)
+    hook = global_batch_hook()
+    if hook is not None:
+        return per_img.sum() / (B * hook[1])
     return per_img.mean()
 
 
@@ -93,23 +110,27 @@ def _branch_loss(box_feats, cls_feats, batch: Dict[str, torch.Tensor], strides, 
     box_dist, cls_logits = _flat(box_feats), _flat(cls_feats)
     B, A = cls_logits.shape[:2]
     pred_boxes = dist2bbox(dfl_expectation(box_dist, reg_max), anchors[None]) * stride_t[None]
-    cls_logits = cls_logits.float()
+    cls_logits = _wide(cls_logits)
     tgt = task_aligned_assign(torch.sigmoid(cls_logits).detach(), pred_boxes.detach(), anc_px,
                               batch["gt_labels"], batch["gt_bboxes"], batch["mask_gt"], topk=topk)
     fg = tgt["fg_mask"]
     t_scores = tgt["target_scores"]
-    score_sum = t_scores.sum().clamp_min(1.0)
+    score_sum = t_scores.sum()
+    hook = global_batch_hook()
+    if hook is not None:
+        score_sum = hook[0](score_sum)
+    score_sum = score_sum.clamp_min(1.0)
 
     loss_cls = optax_sigmoid_bce(cls_logits, t_scores).sum() / score_sum
     weight = t_scores.sum(-1) * fg
     iou = bbox_ciou(pred_boxes, tgt["target_bboxes"])
     loss_box = ((1.0 - iou) * weight).sum() / score_sum
     t_dist = bbox2dist(tgt["target_bboxes"] / stride_t[None], anchors[None], reg_max)
-    dfl = _dfl_loss(box_dist.reshape(B, A, 4, reg_max).float(), t_dist, reg_max)
+    dfl = _dfl_loss(_wide(box_dist.reshape(B, A, 4, reg_max)), t_dist, reg_max)
     loss_dfl = (dfl * weight).sum() / score_sum
     out = {"cls": loss_cls, "box": loss_box, "dfl": loss_dfl}
     if coeff_feats is not None and proto is not None and "gt_masks" in batch:
-        out["seg"] = _mask_loss(_flat(coeff_feats).float(), proto.float(), batch["gt_masks"].float(),
+        out["seg"] = _mask_loss(_wide(_flat(coeff_feats)), _wide(proto), _wide(batch["gt_masks"]),
                                 tgt["target_bboxes"], tgt["target_gt_idx"], weight, max_pos)
     return out
 
@@ -122,6 +143,9 @@ def detection_loss(head_out: Dict[str, torch.Tensor], batch: Dict[str, torch.Ten
     scaled by the batch size, as ultralytics does."""
     hyp = hyp or DEFAULT_HYP
     B = head_out["boxes"].shape[0]
+    hook = global_batch_hook()
+    if hook is not None:
+        B *= hook[1]
     seg_args = {}
     if "proto" in head_out and "coeff_feats" in head_out:
         seg_args = {"coeff_feats": head_out["coeff_feats"], "proto": head_out["proto"]}

@@ -22,7 +22,24 @@ MasterWeights``): for an fp32 model its own tensors, which each step updates in
 place; for a bf16 model (``dtype=torch.bfloat16``, flax's fp32 parameters under
 a bf16 ``dtype``) fp32 copies that SGD, the momentum, weight decay, clipping and
 the EMA act on, rounded into the model after each step, and whose fp32 values
-the checkpoints hold.  There is one device: ``mesh`` raises.
+the checkpoints hold.
+
+``mesh`` (``parallel/mesh.py make_mesh``: one process per rank) makes the step
+data-parallel, and it computes the single-process step on the global batch, as
+the JAX trainer's jitted step with a sharded batch does:
+``data_parallel_step`` gives each rank its slice of the global batch and runs
+the step inside ``with mesh:``, where ``detection_loss``'s normalisers and
+``BatchNorm2d``'s training statistics are the global batch's; the gradients of
+the fp32 masters are summed over ``data`` (``reduce_gradients``; over every rank
+for the layers ``shard_model`` split over ``model``) before the norm, the clip
+and SGD, and the reported losses are summed too.  Every rank starts from the
+first rank's weights (``replicate``) and applies the same update, so the
+parameters, BatchNorm statistics, momentum and EMA stay the same on every rank.
+Only the first rank prints and writes checkpoints, which hold full tensors and
+load with no mesh.  ``fit`` hands every rank the whole global batch, of which
+it keeps its slice: each rank loads and augments all of it, so the data
+pipeline costs each rank as much as it costs one process.  Without a mesh the
+step is the single-process one, unchanged.
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ import numpy as np
 import torch
 
 from yolo_puncture_tpu_torch.nn.common import MasterWeights
+from yolo_puncture_tpu_torch.parallel import mesh as pmesh
 from yolo_puncture_tpu_torch.train.losses import DEFAULT_HYP, detection_loss
 
 
@@ -87,9 +105,8 @@ class Trainer:
         seed: int = 0,
         clip_norm: float = 0.0,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device training (parallel/mesh.py) is not ported: ROADMAP item 12")
         self.model = model
+        self.mesh = mesh
         self.nc = nc
         self.imgsz = imgsz
         self.hyp = hyp or dict(DEFAULT_HYP)
@@ -113,6 +130,9 @@ class Trainer:
         ``PRNGKey(seed)`` here), zero momentum, step 0."""
         self.weights = MasterWeights(self.model)
         named = self.weights.named
+        if self.mesh is not None:
+            pmesh.replicate(self.mesh, list(named.values()) + [b for _, b in self.model.named_buffers()])
+            self.weights.copy_to_module()
         decay = [p for p in named.values() if p.ndim >= 2]
         no_decay = [p for p in named.values() if p.ndim < 2]
         self.opt = torch.optim.SGD(
@@ -174,11 +194,27 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
         return total, losses
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process prints and writes checkpoints: the first rank of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         if self.opt is None:
             raise RuntimeError("init_state first")
-        batch = self._to_device(self._quantize_for_transfer(batch))
+        # quantised on the global batch, so that every rank decides as one process would
+        batch = self._quantize_for_transfer(batch)
+        if self.mesh is not None:
+            return pmesh.data_parallel_step(self.mesh, self._step)(state, batch)
+        return self._step(state, batch)
+
+    def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        batch = self._to_device(batch)
         total, losses = self.loss_and_grads(batch)
+        if self.mesh is not None:
+            pmesh.reduce_gradients(self.mesh, state.params, pmesh.sharded_parameter_names(self.model))
+            summed = self.mesh.data_sum(torch.stack([v.detach() for v in losses.values()]))
+            losses = dict(zip(losses, summed))
         grads = [p.grad for p in state.params.values()]
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.clip_norm:
@@ -231,7 +267,7 @@ class Trainer:
                         step = state.step
                 state, metrics = self.train_step(state, batch)
                 step += 1
-                if step % log_every == 0:
+                if step % log_every == 0 and self.is_writer:
                     m = {k: float(v) for k, v in metrics.items()}
                     print(
                         f"epoch {epoch} step {step}: total={m['total']:.3f} "
@@ -250,7 +286,11 @@ class Trainer:
     def _host(tree):
         return None if tree is None else {k: v.detach().cpu().clone() for k, v in tree.items()}
 
-    def save_checkpoint(self, state: TrainState, ckpt_dir: str) -> str:
+    def save_checkpoint(self, state: TrainState, ckpt_dir: str) -> Optional[str]:
+        """``{ckpt_dir}/step_{N}.pt``; under a mesh only the first rank writes (the
+        others return None)."""
+        if not self.is_writer:
+            return None
         os.makedirs(ckpt_dir, exist_ok=True)
         path = os.path.abspath(os.path.join(ckpt_dir, f"step_{int(state.step)}.pt"))
         payload = {
