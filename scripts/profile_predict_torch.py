@@ -24,9 +24,10 @@ frames at 256², seeded init) and one of the detector's ``Trainer`` in phase 3r'
 (YOLOv10-S seg at 640², B 8, a synthetic batch of polygons).  Each time two
 warm-up calls,
 then one call under ``torch.profiler``.  Prints one JSON object per profile:
-the call's wall time on the host clock, the summed device time of every kernel
-and copy (one stream, so the sum is the busy time), the busy share, and the ten
-kernels with the most device time.  The Chrome traces go to ``--out``.
+the call's wall time on the host clock, the device's busy time (the union of
+the intervals of every kernel, copy and fill over all streams,
+``benchmark/tracefile.py union_length``), the busy share, and the ten kernels
+with the most device time.  The Chrome traces go to ``--out``.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -164,6 +165,8 @@ def profile_call(fn, label: str, out_dir: str, card: str, extra: dict) -> None:
     """``fn()`` once under the profiler; one JSON line and a Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.tracefile import Trace, union_length
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -177,10 +180,10 @@ def profile_call(fn, label: str, out_dir: str, card: str, extra: dict) -> None:
     # device-side events only (kernels, copies, sets): host ops also carry device totals
     by_name = sorted(((device_us(e), e.key, e.count) for e in prof.key_averages()
                       if str(e.device_type).endswith("CUDA") and device_us(e) > 0), reverse=True)
-    busy_ms = sum(us for us, _, _ in by_name) / 1e3
     os.makedirs(out_dir, exist_ok=True)
     trace = os.path.join(out_dir, f"{label}.json")
     prof.export_chrome_trace(trace)
+    busy_ms = union_length((d["start"], d["end"]) for d in Trace.load(trace).device) / 1e3
     print(json.dumps({
         "card": card, **extra, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,

@@ -63,7 +63,12 @@ is copied to the host inside the timed loop, and a step waits for the device onc
 CUDA events around each step give the median step time.  The line before the last
 is the card's ``nvidia-smi --query-gpu=name,power.limit``; the last is
 ``bench.py``'s JSON line plus ``median_step_ms``.  ``--trace DIR`` traces one more
-step with ``torch.profiler`` (``utils/profiling.py device_trace``).
+step with ``torch.profiler`` (``utils/profiling.py device_trace``); the step's
+spans are ranges of that trace (``utils/profiling.py span``): ``step`` around the
+whole call, inside it ``step::letterbox``, ``step::detector``, ``step::post`` and
+``step::tracker``, and inside the tracker ``track::encode``, ``track::readout``,
+``track::head`` and ``track::write`` (one each a window), ``track::tail``,
+``track::ids`` and ``track::sync`` (the host's wait on ``act.any()``).
 
 ``--mode e2e`` (``BENCH_MODE=e2e``, BASELINE config 5) runs
 ``VideoSpeedPipeline`` with the bf16 YOLOv10-S seg and a bf16 EfficientNet-B3
@@ -113,7 +118,7 @@ from yolo_puncture_tpu_torch.ops.masks import decode_masks
 from yolo_puncture_tpu_torch.ops.nms import select_detections
 from yolo_puncture_tpu_torch.track import build_bench_tracker
 from yolo_puncture_tpu_torch.utils.device import resolve_device
-from yolo_puncture_tpu_torch.utils.profiling import device_trace
+from yolo_puncture_tpu_torch.utils.profiling import device_trace, span
 
 FRAME_HW = (720, 1280)
 MIN_SIDE = 480                            # the tracker's short side
@@ -171,20 +176,24 @@ def make_fused_step(model, track_fn, imgsz: int = 640, int8: bool = False, act_s
 
     @torch.no_grad()
     def step(memory, frames_u8, conf, chk):
-        imgs, _, _ = letterbox(frames_u8, imgsz, bgr_to_rgb=True, dtype=torch.bfloat16)
-        with int8_convs(int8, act_scales=act_scales):
-            out = model(imgs)
-        det = select_detections(out, nms_free=True, conf_thres=conf, max_det=8)
-        masks = decode_masks(out["proto"], det["coeffs"][:, :1], det["boxes"][:, :1], (imgsz, imgsz),
-                             upsample=True, threshold=0.5)
-        boxes, scores, valid = det["boxes"][:, 0], det["scores"][:, 0], det["valid"][:, 0]
-        mask = masks[:, 0].to(torch.uint8)
-        chk = (chk + boxes.float().sum() + scores.float().sum() + valid.sum()
-               + mask[:, ::37, ::37].to(torch.int32).sum())
-        ids = None
-        if track_fn is not None:
-            memory, ids = track_fn(memory, frames_u8, out.get("pyramid"))
-            chk = chk + ids[:, ::64, ::64].to(torch.int32).sum()
+        with span("step"):
+            with span("step::letterbox"):
+                imgs, _, _ = letterbox(frames_u8, imgsz, bgr_to_rgb=True, dtype=torch.bfloat16)
+            with span("step::detector"), int8_convs(int8, act_scales=act_scales):
+                out = model(imgs)
+            with span("step::post"):
+                det = select_detections(out, nms_free=True, conf_thres=conf, max_det=8)
+                masks = decode_masks(out["proto"], det["coeffs"][:, :1], det["boxes"][:, :1], (imgsz, imgsz),
+                                     upsample=True, threshold=0.5)
+                boxes, scores, valid = det["boxes"][:, 0], det["scores"][:, 0], det["valid"][:, 0]
+                mask = masks[:, 0].to(torch.uint8)
+                chk = (chk + boxes.float().sum() + scores.float().sum() + valid.sum()
+                       + mask[:, ::37, ::37].to(torch.int32).sum())
+            ids = None
+            if track_fn is not None:
+                with span("step::tracker"):
+                    memory, ids = track_fn(memory, frames_u8, out.get("pyramid"))
+                    chk = chk + ids[:, ::64, ::64].to(torch.int32).sum()
         return {"boxes": boxes, "scores": scores, "valid": valid, "mask": mask, "ids": ids, "chk": chk}, memory
 
     return step

@@ -18,6 +18,7 @@ from yolo_puncture_tpu_torch.track.saver import (  # noqa: F401
     flush_buffer,
     get_input_frame_for_deva,
 )
+from yolo_puncture_tpu_torch.utils.profiling import span
 
 
 def reference_tracker_geometry(frame_hw, min_side: int = 480):
@@ -85,12 +86,13 @@ def build_bench_tracker(imgsz: int = 640, dtype=None, min_side: int = 480, windo
 
     @torch.no_grad()
     def run(memory, frames_u8, pyramid=None):
-        if core.pyramid_adapter:
-            keys, skips = core.encode_pyramid(*(pyramid[k].permute(0, 3, 1, 2).to(core.dtype)
-                                                for k in ("P3", "P4", "P5")), content_box=content_box)
-        else:
-            imgs = resize_bilinear(frames_u8.to(torch.bfloat16), (h, w)) / 255.0
-            keys, skips = core.net.encode_key(imgs.permute(0, 3, 1, 2).to(core.dtype))
+        with span("track::encode"):
+            if core.pyramid_adapter:
+                keys, skips = core.encode_pyramid(*(pyramid[k].permute(0, 3, 1, 2).to(core.dtype)
+                                                    for k in ("P3", "P4", "P5")), content_box=content_box)
+            else:
+                imgs = resize_bilinear(frames_u8.to(torch.bfloat16), (h, w)) / 255.0
+                keys, skips = core.net.encode_key(imgs.permute(0, 3, 1, 2).to(core.dtype))
         if window > 1:
             memory, ids = core.propagate_frames(memory, keys, skips, window, full_res_ids=full_res_ids)
         else:

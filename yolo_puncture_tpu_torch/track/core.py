@@ -67,6 +67,14 @@ from yolo_puncture_tpu_torch.utils.convert import (
     read_msgpack,
 )
 from yolo_puncture_tpu_torch.utils.device import resolve_device
+from yolo_puncture_tpu_torch.utils.profiling import span
+
+
+def _host_flag(flag: torch.Tensor) -> bool:
+    """A device flag read on the host (the ``track::sync`` span): the host waits
+    here until the card has run everything queued before it."""
+    with span("track::sync"):
+        return bool(flag)
 
 
 def match_detections(prop_masks, active, det_onehot, det_valid, overlap_thresh: float = 0.6):
@@ -306,19 +314,21 @@ class TrackerCore:
 
     def _read(self, key, memory: MemoryState):
         """key (Ck, H16, W16) → (readout (No, Cv, H16, W16), memory)."""
-        readout, memory = self._readout(key.flatten(1).T.contiguous(), memory)
-        readout = readout.reshape(self.max_objects, self.h16, self.w16, -1)
-        return readout.permute(0, 3, 1, 2), memory
+        with span("track::readout"):
+            readout, memory = self._readout(key.flatten(1).T.contiguous(), memory)
+            readout = readout.reshape(self.max_objects, self.h16, self.w16, -1)
+            return readout.permute(0, 3, 1, 2), memory
 
     def _read_window(self, keys_w, memory: MemoryState):
         """One readout for a whole window: the memory is constant between writes,
         so the queries of all w frames stack.  keys_w (w, Ck, H16, W16) →
         (readout (w, No, Cv, H16, W16), memory)."""
         w = keys_w.shape[0]
-        q = keys_w.flatten(2).transpose(1, 2).reshape(w * self.h16 * self.w16, -1).contiguous()
-        readout, memory = self._readout(q, memory)
-        readout = readout.reshape(self.max_objects, w, self.h16, self.w16, -1)
-        return readout.permute(1, 0, 4, 2, 3), memory
+        with span("track::readout"):
+            q = keys_w.flatten(2).transpose(1, 2).reshape(w * self.h16 * self.w16, -1).contiguous()
+            readout, memory = self._readout(q, memory)
+            readout = readout.reshape(self.max_objects, w, self.h16, self.w16, -1)
+            return readout.permute(1, 0, 4, 2, 3), memory
 
     def _propagate_scan_core(self, memory: MemoryState, keys_w, f16_w, exact: bool, any_active: bool):
         """The memory-coupled part of one window: readout → decoder head → sensory
@@ -337,27 +347,29 @@ class TrackerCore:
         hidden (w, No, C, H16, W16), logits16 (w, No, H16, W16))."""
         readout, memory = self._read_window(keys_w, memory)
         w = keys_w.shape[0]
-        if exact:
-            sensory, hiddens, logits = memory.sensory, [], []
-            for i in range(w):
-                hidden_i, logits16_i = self.net.decode_head(readout[i], sensory)
-                sensory = self.net.update_sensory(sensory, hidden_i)
-                hiddens.append(hidden_i)
-                logits.append(logits16_i)
-            hidden, logits16 = torch.stack(hiddens), torch.stack(logits)
-        else:
-            hidden, logits16 = self.net.decode_head(
-                readout.flatten(0, 1), memory.sensory.repeat(w, 1, 1, 1)
-            )
-            hidden = hidden.reshape(w, self.max_objects, *hidden.shape[1:])
-            logits16 = logits16.reshape(w, self.max_objects, *logits16.shape[1:])
-            sensory = self.net.update_sensory(memory.sensory, hidden[-1])
-        prob16_last = soft_aggregate(logits16[-1], memory.active.to(logits16.dtype))
-        memory = memory._replace(sensory=sensory)
-        if any_active:
-            if self.enable_long_term and bool(memory.valid[memory.write_pos]):
-                memory = consolidate(memory, self.num_prototypes)
-            memory = self._write(memory, keys_w[-1], f16_w[-1], prob16_last[1:])
+        with span("track::head"):
+            if exact:
+                sensory, hiddens, logits = memory.sensory, [], []
+                for i in range(w):
+                    hidden_i, logits16_i = self.net.decode_head(readout[i], sensory)
+                    sensory = self.net.update_sensory(sensory, hidden_i)
+                    hiddens.append(hidden_i)
+                    logits.append(logits16_i)
+                hidden, logits16 = torch.stack(hiddens), torch.stack(logits)
+            else:
+                hidden, logits16 = self.net.decode_head(
+                    readout.flatten(0, 1), memory.sensory.repeat(w, 1, 1, 1)
+                )
+                hidden = hidden.reshape(w, self.max_objects, *hidden.shape[1:])
+                logits16 = logits16.reshape(w, self.max_objects, *logits16.shape[1:])
+                sensory = self.net.update_sensory(memory.sensory, hidden[-1])
+        with span("track::write"):
+            prob16_last = soft_aggregate(logits16[-1], memory.active.to(logits16.dtype))
+            memory = memory._replace(sensory=sensory)
+            if any_active:
+                if self.enable_long_term and _host_flag(memory.valid[memory.write_pos]):
+                    memory = consolidate(memory, self.num_prototypes)
+                memory = self._write(memory, keys_w[-1], f16_w[-1], prob16_last[1:])
         return memory._replace(frame_idx=memory.frame_idx + w), hidden, logits16
 
     def propagate_window(self, memory: MemoryState, keys_w, skips_w, exact=None,
@@ -372,13 +384,15 @@ class TrackerCore:
         either f4 / f8 or the projected f4p / f8p.  Returns (probs (w, No+1, H4,
         W4), memory) or, with ``return_logits``, (logits (w, No, H4, W4), memory)
         for callers that upsample the logits before aggregating, as ``step`` does."""
-        proj = skips_w if "f4p" in skips_w else self.net.project_skips(skips_w)
+        with span("track::tail"):
+            proj = skips_w if "f4p" in skips_w else self.net.project_skips(skips_w)
         act = memory.active
         memory, hidden, _ = self._propagate_scan_core(
             memory, keys_w, skips_w["f16"], exact=self.exact_windows if exact is None else exact,
-            any_active=bool(act.any()),
+            any_active=_host_flag(act.any()),
         )
-        logits_s4 = self.net.decode_tail(hidden, proj["f8p"], proj["f4p"])
+        with span("track::tail"):
+            logits_s4 = self.net.decode_tail(hidden, proj["f8p"], proj["f4p"])
         if return_logits:
             return logits_s4, memory
         return soft_aggregate(logits_s4, act.to(logits_s4.dtype)), memory
@@ -407,12 +421,13 @@ class TrackerCore:
             readout, memory = self._read(key, memory)
         prob, prob_s16, sensory = self._decode_and_update(memory, skips0, readout, full_res=full_res)
         memory = memory._replace(sensory=sensory)
-        if memory.frame_idx % self.mem_every == 0 and bool(memory.active.any()):
-            # before an occupied slot is overwritten, its most used elements
-            # move to the long-term bank
-            if self.enable_long_term and bool(memory.valid[memory.write_pos]):
-                memory = consolidate(memory, self.num_prototypes)
-            memory = self._write(memory, key, skips0["f16"], prob_s16[1:])
+        if memory.frame_idx % self.mem_every == 0 and _host_flag(memory.active.any()):
+            with span("track::write"):
+                # before an occupied slot is overwritten, its most used elements
+                # move to the long-term bank
+                if self.enable_long_term and _host_flag(memory.valid[memory.write_pos]):
+                    memory = consolidate(memory, self.num_prototypes)
+                memory = self._write(memory, key, skips0["f16"], prob_s16[1:])
         return prob, memory._replace(frame_idx=memory.frame_idx + 1)
 
     def _incorporate_impl(self, memory: MemoryState, image, det_onehot, det_valid):
@@ -504,22 +519,25 @@ class TrackerCore:
                 f"exact=True requires window == mem_every ({self.mem_every}); got window={window}. "
                 f"Pass exact=False for the windowed approximation at this cadence."
             )
-        proj = self.net.project_skips(skips)
+        with span("track::tail"):
+            proj = self.net.project_skips(skips)
         act = memory.active
-        any_active = bool(act.any())  # the windows do not change it: one wait for the device, not one a window
+        any_active = _host_flag(act.any())  # the windows do not change it: one wait for the device, not one a window
         hiddens = []
         for i in range(0, B, window):
             memory, hidden, _ = self._propagate_scan_core(
                 memory, keys[i:i + window], skips["f16"][i:i + window], exact=exact, any_active=any_active
             )
             hiddens.append(hidden)
-        logits_s4 = self.net.decode_tail(torch.cat(hiddens), proj["f8p"], proj["f4p"])
+        with span("track::tail"):
+            logits_s4 = self.net.decode_tail(torch.cat(hiddens), proj["f8p"], proj["f4p"])
         if return_logits:
             return memory, logits_s4
-        actf = act.to(logits_s4.dtype)
-        if full_res_ids:
-            logits_s4 = upsample_bilinear_matmul(logits_s4, *self.image_size)
-        return memory, soft_aggregate(logits_s4, actf).argmax(dim=1).to(torch.uint8)
+        with span("track::ids"):
+            actf = act.to(logits_s4.dtype)
+            if full_res_ids:
+                logits_s4 = upsample_bilinear_matmul(logits_s4, *self.image_size)
+            return memory, soft_aggregate(logits_s4, actf).argmax(dim=1).to(torch.uint8)
 
     def _window_impl(self, memory: MemoryState, images_w):
         """Encode and propagate a window of frames (w, 3, H, W); full-resolution
