@@ -1,5 +1,6 @@
-"""The comparison that decides ``correct``: the program's outputs of a step
-against the plain reference's on the same frames, weights and memory.
+"""The seg+track step's comparison (``systems/segtrack.py``): the program's
+outputs of a step against the plain reference's on the same frames, weights
+and memory.
 
 For the detector, the program's best slot is judged by what the reference says
 of it, as a served token is judged by the reference's logit for it: the
@@ -22,9 +23,19 @@ sensitive frame (PERF.md, cell correctness); ``mask_iou_gap`` pools the masks
 that differ, pooled, and ``ids_frame_max``, the largest share in one frame (an
 answer altered in one frame of 128 moves only this one); ``state_gap``, the widest relative distance of the memory
 after a step (keys, values, sensory) from the reference's after the same step
-from the same memory.  Each number has a limit in the cell's file
-(``workloads/<cell>.json``, ``limits``); a number the cell's file gives no
-limit is read and printed but not compared.
+from the same memory.
+
+How far bf16 moves the detector's scores, boxes and masks depends on the random
+draw of its weights: a draw ten times as sensitive as another reads ten times
+the gaps.  The witness measures that sensitivity in the same run: the fp32
+reference itself on the frames with one grey level added to a third of the
+pixels (``witness_frames``), judged by ``per_frame`` as the program is.  The
+ratios ``score_ratio``, ``box_ratio`` and ``mask_ratio`` hold the program's
+``score_gap``, ``box_px`` and pooled ``mask_iou_gap`` against the witness's, so
+a draw's sensitivity cancels (PERF.md, cell correctness).  ``run.py judge``
+holds each number to its limit in the cell's file (``workloads/<cell>.json``,
+``limits``); a number the cell's file gives no limit is read and printed but not
+compared.
 """
 
 from __future__ import annotations
@@ -37,7 +48,9 @@ import torch
 from benchmark.reference import yolo as ry
 from benchmark.reference.numerics import Numerics
 
-NAMES = ("choice_gap", "score_gap", "box_px", "mask_gap", "mask_iou_gap", "ids_mismatch", "ids_frame_max", "state_gap")
+NAMES = ("choice_gap", "score_gap", "box_px", "mask_gap", "mask_iou_gap", "ids_mismatch", "ids_frame_max", "state_gap",
+         "score_ratio", "box_ratio", "mask_ratio")
+RATIOS = {"score_ratio": "score_gap", "box_ratio": "box_px", "mask_ratio": "mask_iou_gap"}
 QUANTILE = 0.99
 CANDIDATES, BOX_TOL = 8, 2.0
 
@@ -86,9 +99,8 @@ def ids_readings(prog_ids: torch.Tensor, ref_ids: torch.Tensor) -> Dict:
             "ids_frame_max": float(diff.max()) / ref_ids[0].numel()}
 
 
-def combine(frames: List[Dict[str, torch.Tensor]], ids: List[Dict[str, int]], state_gaps: List[float]
-            ) -> Dict[str, float]:
-    """The numbers over every checked frame and step."""
+def frame_numbers(frames: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """The detector's numbers over every checked frame."""
     f = {k: torch.cat([x[k] for x in frames]).float() for k in frames[0]}
     valid = f["valid"].bool()
     union = float(f["union"].sum())
@@ -100,12 +112,28 @@ def combine(frames: List[Dict[str, torch.Tensor]], ids: List[Dict[str, int]], st
         "box_px": q(f["box_px"][valid]),
         "mask_gap": q(1.0 - f["inter"][seen] / f["union"][seen]),
         "mask_iou_gap": 1.0 - float(f["inter"].sum()) / union if union else 0.0,
+    }
+
+
+def combine(frames: List[Dict[str, torch.Tensor]], ids: List[Dict[str, int]], state_gaps: List[float]
+            ) -> Dict[str, float]:
+    """The numbers over every checked frame and step."""
+    return {
+        **frame_numbers(frames),
         "ids_mismatch": sum(x["ids_diff"] for x in ids) / sum(x["ids_total"] for x in ids),
         "ids_frame_max": max(x["ids_frame_max"] for x in ids),
         "state_gap": max(state_gaps),
     }
 
 
-def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
-    """Correct when every number is finite and within its limit."""
-    return all(math.isfinite(numbers[k]) and numbers[k] <= limits[k] for k in limits)
+def witness_frames(frames_u8: torch.Tensor, seed: int) -> torch.Tensor:
+    """The frames with one grey level added to a third of the pixels, drawn from the seed."""
+    g = torch.Generator(device=frames_u8.device).manual_seed(int(seed) % (2 ** 63))
+    bump = (torch.rand(frames_u8.shape, generator=g, device=frames_u8.device) < 1 / 3).int()
+    return (frames_u8.int() + bump).clamp(0, 255).to(torch.uint8)
+
+
+def witness_ratios(numbers: Dict[str, float], witness: Dict[str, float]) -> Dict[str, float]:
+    """Each detector gap over the witness's (infinite where only the witness reads 0)."""
+    return {r: numbers[k] / witness[k] if witness[k] > 0 else (math.inf if numbers[k] > 0 else 0.0)
+            for r, k in RATIOS.items()}

@@ -6,22 +6,24 @@ From the root of a checkout holding ``BENCHMARK.json``, ``benchmark/`` and the
 program (``yolo_puncture_tpu_torch``), on a machine with a CUDA card.  The cell
 is ``benchmark/workloads/<cell>.json``; it names a configuration
 (``benchmark/configs/<config>.json``) and a traffic mix
-(``benchmark/traffic/<traffic>.json``).  Each metric that ``BENCHMARK.json``
-gives the cell is read by ``benchmark/metrics/<metric>.py``.
+(``benchmark/traffic/<traffic>.json``), and the configuration names its system
+(``benchmark/systems/<system>.py``, whose seam ``systems/__init__.py``
+describes).  Each metric that ``BENCHMARK.json`` gives the cell is read by
+``benchmark/metrics/<metric>.py``.  This harness knows no model: the system
+makes the inputs and weights, builds the program, hands its steps in and
+checks them against its plain reference.
 
-Set-up draws the frames and the weights from the seed on the card, builds the
-program's fused seg+track step with them and runs two warm-up steps.  The
-window then plays the recording for ``--seconds``: each step uploads its batch
-from pinned memory, runs the step, and copies its outputs (best box, score,
-valid flag, best-slot mask, id map) back into pinned memory; step i + 1 is
-handed in before step i's outputs are read, so two batches are in flight, and
-the tracker's memory is carried from step to step.  With ``--trace 1`` two
-short stretches in the middle of the window run under ``torch.profiler``: one
-plain (device busy time, the layers' device time), one with Python stacks
-(which call launched each kernel).  After the window the program is freed and
-the plain reference (``benchmark/reference/``, fp32, TF32 off) recomputes the
-first step and ``check_steps`` more, drawn from the seed, from the same frames,
-weights and memory; ``check.py`` compares them.
+Set-up is the system's set-up and two warm-up steps.  The window then hands
+steps in for ``--seconds``: step i + 1 is handed in before step i's outputs are
+waited for, so two steps are in flight (one, where a step returns its outputs
+already on the host), and the state is carried from step to step.  With
+``--trace 1`` two short stretches in the middle of the window run under
+``torch.profiler``: one plain (device busy time, the layers' device time), one
+with Python stacks (which call launched each kernel).  After the window the
+system frees the program and its plain reference (fp32, TF32 off) recomputes
+the first step and ``check_steps`` more, drawn from the seed, from the same
+inputs, weights and state; each number with a limit in the cell's file is
+compared with it.
 
 The last line of standard output is one JSON object (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
@@ -41,6 +43,7 @@ import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -54,9 +57,6 @@ if str(ROOT) not in sys.path:
 import torch  # noqa: E402
 from torch.autograd.profiler import record_function  # noqa: E402
 
-from benchmark import check, reckon, system, traffic as traffic_mod, weights  # noqa: E402
-from benchmark.reference import tracker as rt  # noqa: E402
-from benchmark.reference import yolo as ry  # noqa: E402
 from benchmark.tracefile import Trace  # noqa: E402
 
 IMPORTED = time.perf_counter()
@@ -66,8 +66,29 @@ BUILD = ROOT / "build" / "benchmark"
 FORBIDDEN = ("jax", "jaxlib", "flax", "yolo_puncture_tpu")
 WARMUP_STEPS = 2
 PLAIN_TRACE_STEPS, STACK_TRACE_STEPS = 3, 1
-REF_BLOCK = 16
 NAME_CHARS = 160            # a kernel's templated name is cut here in the breakdown
+
+
+def _named(kind: str, name: str, suffix: str = ".json") -> Path:
+    path = HERE / kind / f"{name}{suffix}"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} file named {name!r} ({path})")
+    return path
+
+
+def load_json(kind: str, name: str) -> Dict:
+    """``benchmark/<kind>/<name>.json``: a cell (``workloads``), a configuration
+    (``configs``) or a traffic mix (``traffic``)."""
+    return json.loads(_named(kind, name).read_text())
+
+
+def _load_module(kind: str, name: str):
+    """``benchmark/<kind>/<name>.py`` loaded by its path: a metric's reader or a system."""
+    spec = importlib.util.spec_from_file_location(f"benchmark.{kind}.{name}", _named(kind, name, ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_cell(name: str, overrides: Optional[Dict] = None) -> Dict:
@@ -75,12 +96,9 @@ def load_cell(name: str, overrides: Optional[Dict] = None) -> Dict:
     ``overrides`` = {"config": {...}, "traffic": {...}, "limits": {...}} replaces
     entries, and the limits whole (the CPU tests shrink the sizes, and set limits
     for them, so)."""
-    path = HERE / "workloads" / f"{name}.json"
-    if not path.is_file():
-        raise FileNotFoundError(f"no cell named {name!r} ({path})")
-    cell = json.loads(path.read_text())
-    cell["cfg"] = json.loads((HERE / "configs" / f"{cell['config']}.json").read_text())
-    cell["tr"] = traffic_mod.load(cell["traffic"])
+    cell = load_json("workloads", name)
+    cell["cfg"] = load_json("configs", cell["config"])
+    cell["tr"] = load_json("traffic", cell["traffic"])
     for part, key in (("config", "cfg"), ("traffic", "tr")):
         for k, v in ((overrides or {}).get(part) or {}).items():
             if isinstance(v, dict) and isinstance(cell[key].get(k), dict):
@@ -101,11 +119,13 @@ def cell_metrics(name: str, trace: bool) -> List[Dict]:
 
 
 def read_metric(name: str, run) -> Optional[float]:
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(run)
+    return _load_module("metrics", name).read(run)
+
+
+def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
+    """Correct when every number the cell's file gives a limit is finite and
+    within it; a number without a limit is printed, not compared."""
+    return all(math.isfinite(numbers[k]) and numbers[k] <= limits[k] for k in limits)
 
 
 @dataclasses.dataclass
@@ -125,25 +145,6 @@ class Run:
     stack_trace: Optional[Trace] = None        # the stretch profiled with Python stacks
 
 
-class HostEvent:
-    """A CPU stand-in for ``torch.cuda.Event``: the work is done when recorded."""
-
-    def record(self):
-        pass
-
-    def synchronize(self):
-        pass
-
-
-def _host_outputs(cfg: Dict, B: int, pinned: bool) -> Dict[str, torch.Tensor]:
-    """Host buffers for one step's outputs: the best slot's box, score, valid
-    flag and mask (letterbox resolution), and the id map (tracker resolution)."""
-    size, (h, w) = cfg["detector"]["imgsz"], reckon.tracker_hw(cfg)
-    shapes = {"boxes": ((B, 4), torch.float32), "scores": ((B,), torch.float32), "valid": ((B,), torch.bool),
-              "mask": ((B, size, size), torch.uint8), "ids": ((B, h, w), torch.uint8)}
-    return {k: torch.empty(shape, dtype=dt, pin_memory=pinned) for k, (shape, dt) in shapes.items()}
-
-
 def _power_limit() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,64 +157,52 @@ def _power_limit() -> str:
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
              overrides: Optional[Dict] = None, fault=None, t_start: Optional[float] = None):
     """Set up, measure and check one run of the cell.  Returns (result dict, the
-    compared numbers with their limits).  ``fault(step)`` may wrap the program's
-    step (the tests plant faults so)."""
+    compared numbers with their limits).  ``fault(step)`` may wrap the system's
+    timed step (the tests plant faults so)."""
     t_start = PROCESS_START if t_start is None else t_start
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cell = load_cell(name, overrides)
     cfg, tr = cell["cfg"], cell["tr"]
+    system_mod = _load_module("systems", cfg["system"])
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    served = getattr(torch, cfg["dtype"])
     BUILD.mkdir(parents=True, exist_ok=True)
 
-    # -- set-up: frames, weights, the program, warm-up ------------------------------------------------
+    # -- set-up: the system's, then the warm-up -------------------------------------------------------
     marks = [("python, torch", IMPORTED), ("card, cell", time.perf_counter())]
-    frames = traffic_mod.frames(tr, seed, dev)
-    marks.append(("frames", time.perf_counter()))
-    ref_det = weights.detector(cfg, seed, frames[0][:16], dev, served)
-    ref_net = weights.tracker(cfg, seed, frames[0], dev, served)
-    marks.append(("weights", time.perf_counter()))
-    step, mem0 = system.build(cfg, tr, weights.served_state(ref_det, served),
-                              weights.served_state(ref_net, served), dev)
-    marks.append(("program", time.perf_counter()))
-    if fault is not None:
-        step = fault(step)
-    conf, B, n_batches = tr["conf"], tr["batch"], tr["distinct_batches"]
-    new_event = (lambda: torch.cuda.Event()) if cuda else HostEvent
+    system = system_mod.setup(cell, seed, dev, lambda part: marks.append((part, time.perf_counter())), fault)
+    limits = cell["limits"]
+    unknown = sorted(set(limits) - set(system.names))
+    if unknown:
+        raise ValueError(f"the cell's limits name {unknown}, which system {cfg['system']!r} does not compare")
 
-    def hand(i, mem, chk, out_buf):
+    def hand(i, state, into):
         with record_function("bench::handin"):
-            t_hand = time.perf_counter()
-            batch = frames[i % n_batches].to(dev, non_blocking=True)
-            out, mem = step(mem, batch, conf, chk)
-            t_ret = time.perf_counter()
-            for k, buf in out_buf.items():
-                buf.copy_(out[k], non_blocking=True)
-            ev = new_event()
-            ev.record()
-        return {"i": i, "hand": t_hand, "ret": t_ret, "event": ev, "frames": B}, out, mem
+            rec, state = system.hand(i, state, into)
+        rec["i"] = i
+        return rec, state
 
     def wait(rec):
         with record_function("bench::wait"):
-            rec["event"].synchronize()
-            rec["done"] = time.perf_counter()
-        del rec["event"]
+            event = rec.pop("event", None)
+            if event is not None:
+                event.synchronize()
+                rec["done"] = time.perf_counter()
 
     n_check = 1 + tr["check_steps"]
-    ring = [_host_outputs(cfg, B, cuda) for _ in range(2)]
-    check_bufs = [_host_outputs(cfg, B, cuda) for _ in range(n_check)]
-    chk, mem = torch.zeros((), device=dev), mem0
+    ring = [system.outputs() for _ in range(2)]
+    check_bufs = [system.outputs() for _ in range(n_check)]
+    state = system.initial()
     for i in range(WARMUP_STEPS):
-        rec, out, mem = hand(i, mem, chk, ring[0])
+        rec, state = hand(i, state, ring[0])
         wait(rec)
     g = torch.Generator().manual_seed(int(seed) % (2 ** 63))
     check_at = sorted(float(x) for x in (0.15 + 0.8 * torch.rand(tr["check_steps"], generator=g)))
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    del out, mem
+    del state
 
     # -- the window ----------------------------------------------------------------------------------
     run = Run(cfg=cfg, traffic=tr)
@@ -228,7 +217,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         plan = [(t0 + 0.35 * seconds, PLAIN_TRACE_STEPS, False), (t0 + 0.65 * seconds, STACK_TRACE_STEPS, True)]
     profs, active = [], None                    # active: (profiler, last step to wait for, stacks)
     profiled = []                               # (from, to) host seconds of each profiled stretch
-    mem, chk, pending, i = mem0, torch.zeros((), device=dev), None, 0
+    state, pending, i = system.initial(), None, 0
     checked: List[Dict] = []
     while True:
         now = time.perf_counter()
@@ -243,12 +232,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             active = (prof, i + n - 1, stacks)
         is_check = len(checked) < n_check and (i == 0 or (now - t0) >= check_at[len(checked) - 1] * seconds)
         buf = check_bufs[len(checked)] if is_check else ring[i % 2]
-        pre = mem
-        rec, out, mem = hand(i, mem, chk, buf)
-        chk = out["chk"]
+        pre = state
+        rec, state = hand(i, state, buf)
         if is_check:
-            checked.append({"i": i, "pre": pre, "post": mem, "out": buf})
-        del out
+            checked.append({"i": i, "pre": pre, "post": state, "out": buf})
         if pending is not None:
             wait(pending)
             run.steps.append(pending)
@@ -271,7 +258,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
 
     # -- traces ---------------------------------------------------------------------------------------
     if trace:
-        run.step_flops = reckon.step_flops(cfg, tr)
+        run.step_flops = system.step_flops()
     for path, stacks in profs:
         tr_obj = Trace.load(path)
         if stacks:
@@ -292,31 +279,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
           + (f", {(run.trace_window[1] - run.trace_window[0]) / 1e3 / run.trace_steps:.1f} ms profiled"
              if run.trace is not None else ""), file=sys.stderr)
     t_check = time.perf_counter()
-    # -- the check: the program freed, the reference on the same frames, weights and memory ---------------
-    del step, mem, mem0, chk, pending, profs
-    t = cfg["tracker"]
-    hw = reckon.tracker_hw(cfg)
-    lt_cap = t["max_long_term_elements"] if tr["long_term"] else 8
-    ref_trk = rt.Tracker(ref_net, hw, t["window"], tr["long_term"], t["num_prototypes"], t["full_res_ids"])
-    frames_read, ids_read, gaps = [], [], []
-    size = cfg["detector"]["imgsz"]
-    for c in checked:
-        f = frames[c["i"] % n_batches].to(dev)
-        for a in range(0, B, REF_BLOCK):
-            head = ry.head_outputs(ref_det, f[a:a + REF_BLOCK], size)
-            prog = {k: v[a:a + REF_BLOCK] for k, v in c["out"].items()}
-            frames_read.append(check.per_frame(prog, head, conf, ref_det.num, size))
-            del head
-        st = (rt.initial_state(hw[0] // 16, hw[1] // 16, t["max_objects"], t["mem_frames"], lt_cap, dev)
-              if c["i"] == 0 else rt.state_from(c["pre"], dev))
-        st_after, ids = ref_trk.step(st, f)
-        ids_read.append(check.ids_readings(c["out"]["ids"], ids))
-        gaps.append(rt.state_gap(st_after, rt.state_from(c["post"], dev)))
-    numbers = check.combine(frames_read, ids_read, gaps)
+    # -- the check: the program freed, the reference on the same inputs, weights and state -------------
+    del state, pending, profs
+    numbers = system.check(checked)
     print(f"# check: steps {[c['i'] for c in checked]} in {time.perf_counter() - t_check:.2f} s; readings "
           + ", ".join(f"{k} {v!r}" for k, v in numbers.items()), file=sys.stderr)
-    limits = cell["limits"]
-    correct = check.judge(numbers, limits)
+    correct = judge(numbers, limits)
 
     # -- metrics ------------------------------------------------------------------------------------------
     metrics = {}
@@ -333,7 +301,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         result["device"]["busy_s"] = run.trace.busy((a, b)) / 1e6
         result["device"]["window_s"] = (b - a) / 1e6
         result["breakdown"] = breakdown(run.trace, (a, b))
-    compared = {k: {"value": numbers[k], "limit": limits[k]} for k in check.NAMES if k in limits}
+    compared = {k: {"value": numbers[k], "limit": limits[k]} for k in system.names if k in limits}
     result["compared"] = compared
     return result, compared
 

@@ -28,6 +28,16 @@ def test_reference_loads_nothing_of_the_program_or_jax():
     assert not mods & (FORBIDDEN | {"yolo_puncture_tpu_torch"})
 
 
+def test_the_harness_loads_no_model():
+    """``run.py`` knows no model: its system, loaded by name at run time, brings
+    the reference, the weights and the program."""
+    mods = _loaded("import json, sys, benchmark.run; print(json.dumps(sorted(sys.modules)))")
+    tops = {m.split(".")[0] for m in mods}
+    assert not tops & (FORBIDDEN | {"yolo_puncture_tpu_torch"})
+    assert not {m for m in mods if m.startswith(("benchmark.reference", "benchmark.systems"))}
+    assert not mods & {"benchmark.weights", "benchmark.check", "benchmark.reckon", "benchmark.traffic"}
+
+
 def test_a_run_loads_no_jax():
     code = ("import torch; torch.set_num_threads(2); from benchmark import run; "
             f"run.run_cell('stream.v10s.b128', 3, 0.5, True, device='cpu', overrides={TINY!r}); " + TOP)

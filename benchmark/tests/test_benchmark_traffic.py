@@ -2,14 +2,14 @@
 
 import torch
 
-from benchmark import traffic
+from benchmark import run as harness, traffic
 from benchmark.tests.conftest import TINY
 
 
 def _tiny(name="stream.b128"):
-    tr = traffic.load(name)
+    tr = harness.load_json("traffic", name)
     tr.update(TINY["traffic"])
-    tr["bar"] = {**traffic.load(name)["bar"], **TINY["traffic"]["bar"]}
+    tr["bar"] = {**harness.load_json("traffic", name)["bar"], **TINY["traffic"]["bar"]}
     return tr
 
 

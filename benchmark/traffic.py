@@ -22,20 +22,9 @@ uploads its batch.
 
 from __future__ import annotations
 
-import json
-from pathlib import Path
 from typing import Dict, List
 
 import torch
-
-HERE = Path(__file__).resolve().parent
-
-
-def load(name: str) -> Dict:
-    path = HERE / "traffic" / f"{name}.json"
-    if not path.is_file():
-        raise FileNotFoundError(f"no traffic mix named {name!r} ({path})")
-    return json.loads(path.read_text())
 
 
 def bar_starts(traffic: Dict, seed: int) -> int:
